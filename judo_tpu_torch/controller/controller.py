@@ -1,0 +1,340 @@
+"""The planner: a solve function over an explicit ``SolverState`` and the host
+``Controller`` around it (counterpart of ``judo_tpu/controller/controller.py``).
+
+One ``update_action`` runs ``solve``: resample the nominal spline, draw the
+MPPI samples and clip them, evaluate the candidate splines at the rollout
+times, roll out the physics (one fused kernel on CUDA), score, update the
+nominal, and pack everything the host reads into one mirror vector that
+crosses to the host in one copy.
+"""
+
+from __future__ import annotations
+
+import time as _time
+import warnings
+from dataclasses import dataclass, replace
+from typing import Any, Literal, NamedTuple
+
+import numpy as np
+import torch
+from scipy.interpolate import interp1d
+
+from judo_tpu.config import OverridableConfig
+from judo_tpu.gui import slider
+from judo_tpu_torch.ops.splines import eval_spline
+from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
+from judo_tpu_torch.physics.fused_rollout import rollout_lanes
+from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
+from judo_tpu_torch.tasks import Task, get_registered_tasks
+from judo_tpu_torch.utils import normalization as norm
+
+PIPELINE_ROADMAP_ITEM = "ROADMAP.md queue 1, 'pipeline_depth > 0 with CUDA streams and pinned memory'"
+
+
+@slider("horizon", 0.1, 10.0, bounded=True)
+@slider("control_freq", 0.25, 50.0)
+@dataclass
+class ControllerConfig(OverridableConfig):
+    """Controller config (same fields as the JAX package's)."""
+
+    horizon: float = 1.0
+    spline_order: Literal["zero", "linear", "cubic"] = "linear"
+    control_freq: float = 20.0
+    max_opt_iters: int = 1
+    max_num_traces: int = 5
+    action_normalizer: Literal["none", "min_max", "running"] = "none"
+    solver_iterations: int | None = 8
+    pipeline_depth: int = 0
+    full_outputs: bool = False
+
+
+@dataclass
+class SolverState:
+    """Carried planner state."""
+
+    times: torch.Tensor  # (N,) knot times
+    nominal_knots: torch.Tensor  # (N, nu)
+    opt_state: Any
+    norm_state: Any
+    efc_warm: torch.Tensor  # (R, max(nefc, 1)) previous solve's step-0 forces
+    generator: torch.Generator  # sampling stream
+
+
+class SolveOutputs(NamedTuple):
+    rewards: torch.Tensor  # (R,)
+    states: torch.Tensor | None  # (R, T, nq + nv)
+    sensors: torch.Tensor | None  # (R, T, nsensordata)
+    rollout_controls: torch.Tensor | None  # (R, T, nu)
+    candidate_knots: torch.Tensor | None  # (R, N, nu)
+    traces: torch.Tensor | None  # (k, n_trace, T - 1, 2, 3)
+    mirror: torch.Tensor  # [times | knots | rewards | traces]
+
+
+def solve(
+    ctrl: "Controller",
+    carry: SolverState,
+    current_state: torch.Tensor,
+    time: torch.Tensor,
+    task_params: dict,
+    opt_params: Any,
+    norm_params: dict,
+    metadata: dict,
+    spline_ts: torch.Tensor,
+    rollout_ts: torch.Tensor,
+) -> tuple[SolverState, SolveOutputs]:
+    """One planning solve (controller.py:361-547 of the JAX package)."""
+    task, optimizer, pm = ctrl.task, ctrl.optimizer, ctrl.pm
+    order = ctrl.spline_order
+    kind = ctrl.normalizer_kind
+    new_times = time + spline_ts
+    nominal = eval_spline(carry.times, carry.nominal_knots, new_times, order)
+    nominal_n = norm.normalize(kind, norm_params, carry.norm_state, nominal)
+    opt_state = optimizer.pre_optimization(opt_params, carry.opt_state, carry.times, new_times)
+    norm_state = carry.norm_state
+    ctrl_lo = torch.as_tensor(task.actuator_ctrlrange[:, 0], dtype=ctrl.dtype, device=ctrl.device)
+    ctrl_hi = torch.as_tensor(task.actuator_ctrlrange[:, 1], dtype=ctrl.dtype, device=ctrl.device)
+    efc_warm = carry.efc_warm
+    states = sensors = rollout_controls = rewards = candidates = None
+    for _ in range(1 if optimizer.stop_cond() else ctrl.max_opt_iters):
+        cand_n, opt_state = optimizer.sample(opt_params, opt_state, nominal_n, carry.generator)
+        lo = norm.normalize(kind, norm_params, norm_state, ctrl_lo)
+        hi = norm.normalize(kind, norm_params, norm_state, ctrl_hi)
+        cand_n = torch.minimum(torch.maximum(cand_n, lo), hi)
+        candidates = norm.denormalize(kind, norm_params, norm_state, cand_n)
+        rollout_controls = eval_spline(new_times, candidates, time + rollout_ts, order)
+        sim_controls = task.task_to_sim_ctrl(rollout_controls)
+        R = sim_controls.shape[0]
+        out = rollout_lanes(
+            pm,
+            current_state[: pm.nq].expand(R, pm.nq),
+            current_state[pm.nq :].expand(R, pm.nv),
+            sim_controls,
+            physics_substeps=task.physics_substeps,
+            iterations=ctrl.controller_cfg.solver_iterations,
+            efc_warm=efc_warm,
+        )
+        states, sensors, efc_warm = out.states, out.sensordata, out.efc0
+        rewards = task.reward(states, sensors, rollout_controls, task_params, metadata)
+        nominal_n, opt_state = optimizer.update(opt_params, opt_state, cand_n, rewards)
+        norm_state = norm.update_normalizer(kind, norm_params, norm_state, candidates)
+    new_nominal = norm.denormalize(kind, norm_params, norm_state, nominal_n)
+
+    n_trace = len(ctrl.trace_sensors)
+    k = min(ctrl.max_num_traces, optimizer.num_rollouts)
+    if n_trace > 0 and k > 0:
+        elite = torch.topk(rewards, k).indices
+        tr = sensors[elite][:, :, ctrl.trace_inds]  # (k, T, 3 * n_trace)
+        tr = tr.reshape(k, tr.shape[1], n_trace, 3).transpose(1, 2)  # (k, n_trace, T, 3)
+        traces = torch.stack([tr[:, :, :-1], tr[:, :, 1:]], dim=3)
+    else:
+        traces = torch.zeros((0, 0, 0, 2, 3), dtype=ctrl.dtype, device=ctrl.device)
+    new_carry = replace(
+        carry, times=new_times, nominal_knots=new_nominal, opt_state=opt_state, norm_state=norm_state,
+        efc_warm=efc_warm,
+    )
+    mirror = torch.cat([new_times.reshape(-1), new_nominal.reshape(-1), rewards.reshape(-1), traces.reshape(-1)])
+    if ctrl.controller_cfg.full_outputs or type(task).post_rollout is not Task.post_rollout:
+        return new_carry, SolveOutputs(rewards, states, sensors, rollout_controls, candidates, traces, mirror)
+    return new_carry, SolveOutputs(rewards, None, None, None, None, None, mirror)
+
+
+class Controller:
+    """Host-side controller with the JAX package's API (update_action,
+    action(t), rewards, nominal_knots, last_plan_timing), on the task's
+    device and dtype."""
+
+    def __init__(
+        self, controller_config: ControllerConfig, task: Task, optimizer: Optimizer, seed: int | None = None
+    ) -> None:
+        self._controller_cfg = controller_config
+        self.task = task
+        self.optimizer = optimizer
+        self.pm = task.planning_model
+        lane_supported(self.pm)
+        self.device = task.device
+        self.dtype = task.dtype
+        self.seed = seed
+        self.system_metadata: dict[str, Any] = {}
+        self.trace_sensors = task.trace_sensor_ids
+        self.trace_inds = [adr + k for adr in task.trace_sensor_adr for k in range(3)]
+        self.last_plan_timing: dict[str, float] | None = None
+        self.last_outputs: SolveOutputs | None = None
+        self.traces: np.ndarray | None = None
+        self.rewards = np.zeros(self.optimizer_cfg.num_rollouts)
+        self.reset()
+
+    # --- config plumbing ---
+    @property
+    def controller_cfg(self) -> ControllerConfig:
+        return self._controller_cfg
+
+    @property
+    def optimizer_cfg(self) -> OptimizerConfig:
+        return self.optimizer.config
+
+    @property
+    def horizon(self) -> float:
+        return self.controller_cfg.horizon
+
+    @property
+    def spline_order(self) -> str:
+        return self.controller_cfg.spline_order
+
+    @property
+    def max_opt_iters(self) -> int:
+        return self.controller_cfg.max_opt_iters
+
+    @property
+    def max_num_traces(self) -> int:
+        return self.controller_cfg.max_num_traces
+
+    @property
+    def normalizer_kind(self) -> str:
+        kind = self.controller_cfg.action_normalizer
+        return kind if kind in norm.normalizer_registry else "none"
+
+    @property
+    def num_timesteps(self) -> int:
+        """Rollout length, bucketed up to a multiple of 4 steps."""
+        T = int(np.ceil(self.horizon / self.task.dt - 1e-9))
+        return 4 * int(np.ceil(T / 4))
+
+    @property
+    def rollout_times(self) -> np.ndarray:
+        return self.task.dt * np.arange(self.num_timesteps)
+
+    @property
+    def spline_timesteps(self) -> np.ndarray:
+        return np.linspace(0.0, self.horizon, self.optimizer_cfg.num_nodes, endpoint=True)
+
+    @property
+    def time(self) -> float:
+        return self.task.time
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+
+    def _enforce_cubic_min_nodes(self) -> None:
+        if self.optimizer_cfg.num_nodes < 4 and self.spline_order == "cubic":
+            warnings.warn("Cubic splines require at least 4 nodes. Setting num_nodes=4.", stacklevel=2)
+            self.optimizer_cfg.num_nodes = 4
+
+    def _norm_params(self) -> dict:
+        return norm.make_normalizer_params(
+            self.normalizer_kind, self.task.nu, ctrlrange=self.task.actuator_ctrlrange, dtype=self.dtype,
+            device=self.device,
+        )
+
+    def _init_efc_warm(self) -> torch.Tensor:
+        nefc = num_constraint_rows(self.pm)
+        return torch.zeros((self.optimizer_cfg.num_rollouts, max(nefc, 1)), dtype=self.dtype, device=self.device)
+
+    # --- main entry points ---
+    def update_action(self) -> None:
+        """One planning step; per-stage times land in ``last_plan_timing``."""
+        t0 = _time.perf_counter()
+        if int(self.controller_cfg.pipeline_depth) > 0:
+            raise NotImplementedError(f"pipeline_depth > 0 is not ported yet ({PIPELINE_ROADMAP_ITEM})")
+        if self.current_state.shape != (self.pm.nq + self.pm.nv,):
+            raise ValueError(f"current_state has shape {self.current_state.shape}")
+        if self.optimizer_cfg.num_rollouts < 1:
+            raise ValueError("Need at least one rollout!")
+        self._enforce_cubic_min_nodes()
+        self._sync_state_shapes()
+        metadata = self.task.pre_rollout(self.current_state)
+        merged = {**self.system_metadata, **metadata}
+        device_meta = {k: self._tensor(v) for k, v in merged.items() if not isinstance(v, str)}
+        task_params = self.task.task_params()
+        opt_params = self.optimizer.params(self.dtype, self.device)
+        norm_params = self._norm_params()
+        t1 = _time.perf_counter()
+        self._carry, outputs = solve(
+            self, self._carry, self._tensor(self.current_state), self._tensor(self.time), task_params,
+            opt_params, norm_params, device_meta, self._tensor(self.spline_timesteps),
+            self._tensor(self.rollout_times),
+        )
+        t2 = _time.perf_counter()
+        if outputs.states is not None:
+            self.task.post_rollout(outputs.states, outputs.sensors, outputs.rollout_controls, merged)
+        self._consume(outputs)
+        t3 = _time.perf_counter()
+        self.last_plan_timing = {
+            "prep_ms": 1e3 * (t1 - t0), "device_ms": 1e3 * (t2 - t1), "sync_ms": 1e3 * (t3 - t2),
+            "total_ms": 1e3 * (t3 - t0),
+        }
+
+    def _consume(self, outputs: SolveOutputs) -> None:
+        """One device-to-host copy of the packed mirror into the host mirrors."""
+        flat = outputs.mirror.cpu().numpy().astype(np.float64)
+        n, nu, r = self._carry.times.shape[0], self._carry.nominal_knots.shape[1], outputs.rewards.shape[0]
+        self.times = flat[:n]
+        self.nominal_knots = flat[n : n + n * nu].reshape(n, nu)
+        self.rewards = flat[n + n * nu : n + n * nu + r]
+        traces = flat[n + n * nu + r :].reshape(-1, 2, 3)
+        self.traces = traces if traces.size else None
+        self.last_outputs = outputs
+        self.update_spline(self.times, self.nominal_knots)
+
+    def action(self, time: float) -> np.ndarray:
+        return self.spline(time)
+
+    def update_spline(self, times: np.ndarray, controls: np.ndarray) -> None:
+        fill = (controls[..., 0, :], controls[..., -1, :])
+        self.spline = interp1d(times, controls, kind=self.spline_order, axis=-2, fill_value=fill, bounds_error=False)
+
+    def reset(self) -> None:
+        """Reset task and solver state."""
+        self.task.reset()
+        self._enforce_cubic_min_nodes()
+        n = self.optimizer_cfg.num_nodes
+        warm = np.tile(self.task.optimizer_warm_start(), (n, 1))
+        times0 = self.task.time + self.spline_timesteps
+        seed = self.seed if self.seed is not None else int(np.random.randint(0, 2**31 - 1))
+        self._carry = SolverState(
+            times=self._tensor(times0),
+            nominal_knots=self._tensor(warm),
+            opt_state=self.optimizer.init_state(self.dtype, self.device),
+            norm_state=norm.init_normalizer_state(
+                self.normalizer_kind, self.task.nu, self._norm_params(), self.dtype, self.device
+            ),
+            efc_warm=self._init_efc_warm(),
+            generator=torch.Generator(device=self.device).manual_seed(seed),
+        )
+        self.times = np.asarray(times0)
+        self.nominal_knots = warm
+        self.current_state = np.concatenate([self.task.qpos, self.task.qvel])
+        self.update_spline(self.times, self.nominal_knots)
+
+    def _sync_state_shapes(self) -> None:
+        """Re-size the carried warm start after a change of num_rollouts."""
+        if self._carry.efc_warm.shape[0] != self.optimizer_cfg.num_rollouts:
+            self._carry.efc_warm = self._init_efc_warm()
+
+
+def make_controller(
+    init_task: str,
+    init_optimizer: str,
+    device: Any = "cpu",
+    dtype: torch.dtype = torch.float32,
+    seed: int | None = None,
+) -> Controller:
+    """A controller from registry names, on ``device`` in ``dtype``. The
+    per-task overrides it relies on are registered here on every call."""
+    from judo_tpu_torch.controller.overrides import set_leap_controller_overrides
+    from judo_tpu_torch.optimizers.overrides import set_leap_optimizer_overrides
+
+    set_leap_controller_overrides()
+    set_leap_optimizer_overrides("leap_cube")
+    task_entry = get_registered_tasks().get(init_task)
+    opt_entry = get_registered_optimizers().get(init_optimizer)
+    if task_entry is None:
+        raise KeyError(f"Task {init_task} not found in task registry.")
+    if opt_entry is None:
+        raise KeyError(f"Optimizer {init_optimizer} not found in optimizer registry.")
+    task = task_entry[0](device=device, dtype=dtype)
+    opt_cls, opt_cfg_cls = opt_entry
+    opt_cfg = opt_cfg_cls()
+    opt_cfg.set_override(init_task)
+    controller_cfg = ControllerConfig()
+    controller_cfg.set_override(init_task)
+    return Controller(controller_cfg, task, opt_cls(opt_cfg, task.nu), seed=seed)

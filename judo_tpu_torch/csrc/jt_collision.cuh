@@ -1,0 +1,236 @@
+// Narrowphase of one rollout: box-box (4 slots) and capsule-box (2 slots).
+// Scalar twins of judo_tpu_torch/physics/lane_collision.py; the one-hot
+// selections of the lanes code become index choices with the same tie rules
+// (first index wins among equal keys).
+#pragma once
+
+#include "jt_common.cuh"
+
+namespace jt {
+
+constexpr double kBig = 1e10;
+
+// Column i of a row-major 3x3 matrix.
+template <typename T> HD void mcol(const T* m, int i, T* o) { o[0] = m[i]; o[1] = m[3 + i]; o[2] = m[6 + i]; }
+
+// Index of the s-th smallest key (stable: ties go to the lower index).
+template <typename T> HD int rank_select(const T* keys, int n, int s) {
+  for (int i = 0; i < n; ++i) {
+    int rank = 0;
+    for (int j = 0; j < n; ++j)
+      if (keys[j] < keys[i] || (keys[j] == keys[i] && j < i)) ++rank;
+    if (rank == s) return i;
+  }
+  return 0;
+}
+
+// First index of the largest |v_i| among three.
+template <typename T> HD int first_absmax3(const T* v) {
+  const T a0 = tabs(v[0]), a1 = tabs(v[1]), a2 = tabs(v[2]);
+  const T mx = tmax(tmax(a0, a1), a2);
+  return a0 == mx ? 0 : (a1 == mx ? 1 : 2);
+}
+
+template <typename T>
+HD void capsule_box(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2,
+                    T* dist, T* pos, T* nrm) {
+  const T r = s1[0], hl = s1[1];
+  T axis[3], dx[3];
+  mcol(m1, 2, axis);
+  for (int k = 0; k < 3; ++k) dx[k] = x2[k] - x1[k];
+  const T t = tmax(tmin(dot3(dx, axis), hl), -hl);
+  const T tc[3] = {-hl, hl, t};
+  T d[3], p[3][3], n[3][3];
+  for (int ci = 0; ci < 3; ++ci) {
+    T cand[3], rel[3], local[3], clamped[3], delta[3], gaps[3];
+    for (int k = 0; k < 3; ++k) {
+      cand[k] = ci == 2 ? x1[k] + tc[ci] * axis[k] : (ci == 0 ? x1[k] - hl * axis[k] : x1[k] + hl * axis[k]);
+      rel[k] = cand[k] - x2[k];
+    }
+    for (int j = 0; j < 3; ++j) local[j] = m2[j] * rel[0] + m2[3 + j] * rel[1] + m2[6 + j] * rel[2];
+    for (int j = 0; j < 3; ++j) {
+      clamped[j] = tmax(tmin(local[j], s2[j]), -s2[j]);
+      delta[j] = local[j] - clamped[j];
+      gaps[j] = s2[j] - tabs(local[j]);
+    }
+    const T dn = tsqrt(tmax(dot3(delta, delta), T(1e-24)));
+    const bool outside = dn > T(1e-9);
+    const T gmin = tmin(tmin(gaps[0], gaps[1]), gaps[2]);
+    const int sel = gaps[0] == gmin ? 0 : (gaps[1] == gmin ? 1 : 2);
+    T n_in[3] = {0, 0, 0};
+    n_in[sel] = tsign(local[sel]);
+    const T d_in = -gmin;
+    T nl[3], sl[3];
+    const T inv = T(1) / tmax(dn, T(1e-12));
+    for (int j = 0; j < 3; ++j) {
+      nl[j] = outside ? delta[j] * inv : n_in[j];
+      sl[j] = outside ? clamped[j] : local[j] - d_in * n_in[j];
+    }
+    d[ci] = (outside ? dn : d_in) - r;
+    for (int k = 0; k < 3; ++k) {
+      n[ci][k] = -(m2[3 * k] * nl[0] + m2[3 * k + 1] * nl[1] + m2[3 * k + 2] * nl[2]);
+      const T surf = x2[k] + (m2[3 * k] * sl[0] + m2[3 * k + 1] * sl[1] + m2[3 * k + 2] * sl[2]);
+      p[ci][k] = surf + T(0.5) * d[ci] * n[ci][k];
+    }
+  }
+  for (int s = 0; s < 2; ++s) {
+    const int i = rank_select(d, 3, s);
+    dist[s] = d[i];
+    for (int k = 0; k < 3; ++k) { pos[3 * s + k] = p[i][k]; nrm[3 * s + k] = n[i][k]; }
+  }
+}
+
+template <typename T>
+HD void box_box(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2,
+                T* dist_out, T* pos, T* nrm) {
+  T c1[3][3], c2[3][3], dt[3];
+  for (int i = 0; i < 3; ++i) { mcol(m1, i, c1[i]); mcol(m2, i, c2[i]); }
+  for (int k = 0; k < 3; ++k) dt[k] = x2[k] - x1[k];
+  T Rm[3][3], Am[3][3], t1[3], t2[3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) { Rm[i][j] = dot3(c1[i], c2[j]); Am[i][j] = tabs(Rm[i][j]); }
+  for (int i = 0; i < 3; ++i) { t1[i] = dot3(dt, c1[i]); t2[i] = dot3(dt, c2[i]); }
+
+  T seps[15], inv_nrm[15];
+  bool valid[15];
+  for (int i = 0; i < 3; ++i) {
+    seps[i] = tabs(t1[i]) - (s1[i] + s2[0] * Am[i][0] + s2[1] * Am[i][1] + s2[2] * Am[i][2]);
+    inv_nrm[i] = T(1);
+    valid[i] = true;
+  }
+  for (int j = 0; j < 3; ++j) {
+    seps[3 + j] = tabs(t2[j]) - (s2[j] + s1[0] * Am[0][j] + s1[1] * Am[1][j] + s1[2] * Am[2][j]);
+    inv_nrm[3 + j] = T(1);
+    valid[3 + j] = true;
+  }
+  for (int i = 0; i < 3; ++i) {
+    const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3, k = 6 + 3 * i + j;
+      const T ad = tabs(t1[i2] * Rm[i1][j] - t1[i1] * Rm[i2][j]);
+      const T p1k = s1[i1] * Am[i2][j] + s1[i2] * Am[i1][j];
+      const T p2k = s2[j1] * Am[i][j2] + s2[j2] * Am[i][j1];
+      const T len2 = T(1) - Rm[i][j] * Rm[i][j];
+      inv_nrm[k] = trsqrt(tmax(len2, T(1e-24)));
+      seps[k] = (ad - p1k - p2k) * inv_nrm[k];
+      valid[k] = len2 > T(1e-12);
+    }
+  }
+  T dist = T(-kBig), best = T(-kBig);
+  int win = 0;
+  for (int k = 0; k < 15; ++k) {
+    const T sep = valid[k] ? seps[k] : T(-kBig);
+    const T score = valid[k] ? seps[k] + (k >= 6 ? T(1e-6) : T(0)) : T(-kBig);
+    dist = tmax(dist, sep);
+    if (k == 0 || score > best) { best = score; win = k; }
+  }
+  const bool is_face = win < 6, ref_is_1 = win < 3;
+  T axis[3];
+  if (win < 3) {
+    for (int k = 0; k < 3; ++k) axis[k] = c1[win][k];
+  } else if (win < 6) {
+    for (int k = 0; k < 3; ++k) axis[k] = c2[win - 3][k];
+  } else {
+    T cr[3];
+    cross3(c1[(win - 6) / 3], c2[(win - 6) % 3], cr);
+    for (int k = 0; k < 3; ++k) axis[k] = inv_nrm[win] * cr[k];
+  }
+  const T sgn = dot3(axis, dt) >= T(0) ? T(1) : T(-1);
+  T normal[3];
+  for (int k = 0; k < 3; ++k) normal[k] = sgn * axis[k];
+
+  const T* ref_pos = ref_is_1 ? x1 : x2;
+  const T* inc_pos = ref_is_1 ? x2 : x1;
+  T (*ref_cols)[3] = ref_is_1 ? c1 : c2;
+  T (*inc_cols)[3] = ref_is_1 ? c2 : c1;
+  const T* ref_size = ref_is_1 ? s1 : s2;
+  const T* inc_size = ref_is_1 ? s2 : s1;
+  T ref_n[3];
+  for (int k = 0; k < 3; ++k) ref_n[k] = ref_is_1 ? normal[k] : -normal[k];
+
+  T ref_align[3], inc_align[3];
+  for (int i = 0; i < 3; ++i) { ref_align[i] = dot3(ref_cols[i], ref_n); inc_align[i] = dot3(inc_cols[i], ref_n); }
+  const int er = first_absmax3(ref_align), ea = first_absmax3(inc_align);
+  const T ref_sign = tsign(ref_align[er] + T(1e-12));
+  const T inc_sign = -tsign(inc_align[ea] + T(1e-12));
+  const int iu = (ea + 1) % 3, iv = (ea + 2) % 3, ru = (er + 1) % 3, rv = (er + 2) % 3;
+
+  T c_world[3], rel_c[3];
+  for (int k = 0; k < 3; ++k) {
+    c_world[k] = inc_pos[k] + (inc_sign * inc_size[ea]) * inc_cols[ea][k];
+    rel_c[k] = c_world[k] - ref_pos[k];
+  }
+  const T* u_ax = inc_cols[iu];
+  const T* v_ax = inc_cols[iv];
+  const T u_half = inc_size[iu], v_half = inc_size[iv];
+  const T* frame[3] = {ref_cols[ru], ref_cols[rv], ref_cols[er]};
+  const T hu = ref_size[ru], hv = ref_size[rv], h_face = ref_size[er];
+  T base[3], du[3], dv[3];
+  for (int k = 0; k < 3; ++k) {
+    base[k] = dot3(rel_c, frame[k]);
+    du[k] = dot3(u_ax, frame[k]) * u_half;
+    dv[k] = dot3(v_ax, frame[k]) * v_half;
+  }
+  const T su[4] = {1, 1, -1, -1}, sv[4] = {1, -1, 1, -1};
+  T u[4], v[4], wv[4], uc[4], vc[4];
+  for (int s = 0; s < 4; ++s) {
+    u[s] = base[0] + su[s] * du[0] + sv[s] * dv[0];
+    v[s] = base[1] + su[s] * du[1] + sv[s] * dv[1];
+    wv[s] = base[2] + su[s] * du[2] + sv[s] * dv[2];
+    uc[s] = tmax(tmin(u[s], hu), -hu);
+    vc[s] = tmax(tmin(v[s], hv), -hv);
+  }
+  T npl[3];
+  cross3(v_ax, u_ax, npl);
+  const T sc = T(4) * v_half * u_half;
+  for (int k = 0; k < 3; ++k) npl[k] = sc * npl[k];
+  const T n_u = dot3(npl, frame[0]), n_v = dot3(npl, frame[1]);
+  T n_w = dot3(npl, frame[2]);
+  n_w = tsign(n_w + T(1e-30)) * tmax(tabs(n_w), T(1e-12));
+  const T h_ref = h_face * ref_sign;
+
+  // edge-edge contact
+  const int e1 = is_face ? -1 : (win - 6) / 3, e2 = is_face ? -1 : (win - 6) % 3;
+  const T* a1 = is_face ? c1[0] : c1[e1];
+  const T* a2 = is_face ? c2[0] : c2[e2];
+  T ec1[3], ec2[3];
+  for (int k = 0; k < 3; ++k) { ec1[k] = x1[k]; ec2[k] = x2[k]; }
+  for (int i = 0; i < 3; ++i) {
+    T mn[3];
+    for (int k = 0; k < 3; ++k) mn[k] = -normal[k];
+    if (i != e1) {
+      const T si = tsign(dot3(c1[i], normal) + T(1e-12));
+      for (int k = 0; k < 3; ++k) ec1[k] = ec1[k] + (si * s1[i]) * c1[i][k];
+    }
+    if (i != e2) {
+      const T si = tsign(dot3(c2[i], mn) + T(1e-12));
+      for (int k = 0; k < 3; ++k) ec2[k] = ec2[k] + (si * s2[i]) * c2[i][k];
+    }
+  }
+  T d12[3];
+  for (int k = 0; k < 3; ++k) d12[k] = ec2[k] - ec1[k];
+  const T a1a2 = dot3(a1, a2);
+  const T denom = tmax(T(1) - a1a2 * a1a2, T(1e-9));
+  const T te1 = (dot3(d12, a1) - dot3(d12, a2) * a1a2) / denom;
+  const T te2 = -(dot3(d12, a2) - dot3(d12, a1) * a1a2) / denom;
+
+  for (int s = 0; s < 4; ++s) {
+    const T w_c = wv[0] - (n_u * (uc[s] - u[0]) + n_v * (vc[s] - v[0])) / n_w;
+    const T depth = ref_sign * w_c - h_face;
+    const T mid_w = T(0.5) * (w_c + h_ref);
+    T dd;
+    if (is_face) {
+      dd = depth < T(0) ? depth : tmax(depth, dist);
+      for (int k = 0; k < 3; ++k)
+        pos[3 * s + k] = (ref_pos[k] + uc[s] * frame[0][k]) + (vc[s] * frame[1][k] + mid_w * frame[2][k]);
+    } else {
+      dd = s == 0 ? dist : T(kBig);
+      for (int k = 0; k < 3; ++k) pos[3 * s + k] = T(0.5) * ((ec1[k] + te1 * a1[k]) + (ec2[k] + te2 * a2[k]));
+    }
+    if (dist >= T(0)) dd = s == 0 ? dist : T(kBig);
+    dist_out[s] = dd;
+    for (int k = 0; k < 3; ++k) nrm[3 * s + k] = normal[k];
+  }
+}
+
+}  // namespace jt

@@ -1,0 +1,235 @@
+// Shared definitions of the lanes step written for one thread per rollout.
+//
+// Everything here is __host__ __device__: nvcc builds it into the CUDA kernel
+// (fused_rollout.cu) and g++ builds the same arithmetic into a CPU library
+// (fused_rollout_host.cpp) that the CPU tests hold against the plain PyTorch
+// version. The model arrives as two flat arrays (ints and scalars) in fixed
+// record layouts that judo_tpu_torch/physics/fused_rollout.py packs; every
+// per-rollout work array lives in a batch-last scratch buffer (element k of
+// rollout b at k * B + b), so neighbouring threads touch neighbouring
+// addresses. No per-thread array is sized by the model (only fixed 3-, 4-,
+// 9- and 15-element locals), so the kernel has no model-size capacity to
+// exceed: the wrapper sizes the scratch buffer from jt_scratch_per_lane.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define HD __host__ __device__ inline
+#else
+#define HD inline
+#endif
+
+extern "C" {
+// Sizes of one launch; mirrored by fused_rollout.py:_Sizes.
+struct JtSizes {
+  int B, T, substeps, iterations;
+  int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, nsensordata;
+  int nlim, npair, ncon, nefc, nisl;
+  int nu_, ns_, nefc_;
+};
+}
+
+namespace jt {
+
+enum { FREE = 0, BALL = 1, SLIDE = 2, HINGE = 3 };
+enum { PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1 };
+enum { S_JOINTPOS = 9, S_JOINTVEL = 10, S_FRAMEPOS = 26, S_FRAMEQUAT = 27, S_FRAMEXAXIS = 28,
+       S_FRAMEZAXIS = 30 };
+enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
+
+// Record widths (ints I, scalars F) per entity; fused_rollout.py packs them.
+// body  I: parentid rootid jntadr jntnum
+//       F: pos3 quat4 ipos3 iquat4 mass inertia3 subtree_mass
+// joint I: type qposadr dofadr bodyid actfrclimited
+//       F: pos3 axis3 qpos0 stiffness qpos_spring actfrc_lo actfrc_hi
+// dof   I: bodyid parentid          F: damping armature implicit_damping
+// geom  I: bodyid                   F: pos3 quat4
+// site  I: bodyid                   F: pos3 quat4
+// act   I: qadr dadr ctrllimited forcelimited
+//       F: gear gain bias0 bias1 bias2 ctrl_lo ctrl_hi force_lo force_hi
+// sensor I: type objtype objid adr dim reftype refid
+// limit row I: qadr dadr     F: side range margin solimp5 k b invweight
+// pair  I: kind g1 g2 slot0 nslot   F: size1_3 size2_3
+// slot  I: body1 body2              F: mu k b solimp5 margin invweight
+// island I: start size
+// then body_dof_mask (nbody x nv ints); scalars start with the globals
+// timestep gravity3 impratio.
+constexpr int BI = 4, BF = 19, JI = 5, JF = 11, DI = 2, DF = 3, GI = 1, GF = 7, SI = 1, SF = 7;
+constexpr int AI = 4, AF = 9, NI = 7, LI = 2, LF = 11, PI = 5, PF = 6, CI = 2, CF = 10, II = 2;
+constexpr int GLOBF = 5;
+
+struct Layout {
+  int ib, ij, id, ig, is, ia, in, il, ip, ic, ii, imask, nint;
+  int fb, fj, fd, fg, fs, fa, fl, fp, fc, nflt;
+};
+
+HD Layout make_layout(const JtSizes& s) {
+  Layout L;
+  int o = 0;
+  L.ib = o; o += BI * s.nbody;
+  L.ij = o; o += JI * s.njnt;
+  L.id = o; o += DI * s.nv;
+  L.ig = o; o += GI * s.ngeom;
+  L.is = o; o += SI * s.nsite;
+  L.ia = o; o += AI * s.nu;
+  L.in = o; o += NI * s.nsensor;
+  L.il = o; o += LI * s.nlim;
+  L.ip = o; o += PI * s.npair;
+  L.ic = o; o += CI * s.ncon;
+  L.ii = o; o += II * s.nisl;
+  L.imask = o; o += s.nbody * s.nv;
+  L.nint = o;
+  o = GLOBF;
+  L.fb = o; o += BF * s.nbody;
+  L.fj = o; o += JF * s.njnt;
+  L.fd = o; o += DF * s.nv;
+  L.fg = o; o += GF * s.ngeom;
+  L.fs = o; o += SF * s.nsite;
+  L.fa = o; o += AF * s.nu;
+  L.fl = o; o += LF * s.nlim;
+  L.fp = o; o += PF * s.npair;
+  L.fc = o; o += CF * s.ncon;
+  L.nflt = o;
+  return L;
+}
+
+// Per-rollout scratch sections, in elements.
+struct Scratch {
+  int64_t qpos, qvel, fw, cwv;
+  int64_t xpos, xquat, xmat, xipos, ximat, xanchor, xaxis, gxpos, gxmat, sxpos, sxmat;
+  int64_t scom, cinert, crb, cdof, cvel, cdofdot, cacc, cfrc;
+  int64_t M, Minv, work, qfrc, qacc_s, qacc, tv1, tv2;
+  int64_t cdist, cpos, cnorm;
+  int64_t J, aref, reg, diag, act, invs, bvec, f, y, grad, fnew, vv, bv, muc;
+  int64_t total;
+};
+
+HD Scratch make_scratch(const JtSizes& s) {
+  Scratch S;
+  int64_t o = 0;
+  const int64_t nb = s.nbody, nv = s.nv, ne = s.nefc, nc = s.ncon;
+  S.qpos = o; o += s.nq;
+  S.qvel = o; o += nv;
+  S.fw = o; o += ne;
+  S.cwv = o; o += ne;
+  S.xpos = o; o += 3 * nb;
+  S.xquat = o; o += 4 * nb;
+  S.xmat = o; o += 9 * nb;
+  S.xipos = o; o += 3 * nb;
+  S.ximat = o; o += 9 * nb;
+  S.xanchor = o; o += 3 * s.njnt;
+  S.xaxis = o; o += 3 * s.njnt;
+  S.gxpos = o; o += 3 * s.ngeom;
+  S.gxmat = o; o += 9 * s.ngeom;
+  S.sxpos = o; o += 3 * s.nsite;
+  S.sxmat = o; o += 9 * s.nsite;
+  S.scom = o; o += 3 * nb;
+  S.cinert = o; o += 36 * nb;
+  S.crb = o; o += 36 * nb;
+  S.cdof = o; o += 6 * nv;
+  S.cvel = o; o += 6 * nb;
+  S.cdofdot = o; o += 6 * nv;
+  S.cacc = o; o += 6 * nb;
+  S.cfrc = o; o += 6 * nb;
+  S.M = o; o += nv * nv;
+  S.Minv = o; o += nv * nv;
+  S.work = o; o += nv * nv;
+  S.qfrc = o; o += nv;
+  S.qacc_s = o; o += nv;
+  S.qacc = o; o += nv;
+  S.tv1 = o; o += nv;
+  S.tv2 = o; o += nv;
+  S.cdist = o; o += nc;
+  S.cpos = o; o += 3 * nc;
+  S.cnorm = o; o += 3 * nc;
+  S.J = o; o += ne * nv;
+  S.aref = o; o += ne;
+  S.reg = o; o += ne;
+  S.diag = o; o += ne;
+  S.act = o; o += ne;
+  S.invs = o; o += ne;
+  S.bvec = o; o += ne;
+  S.f = o; o += ne;
+  S.y = o; o += ne;
+  S.grad = o; o += ne;
+  S.fnew = o; o += ne;
+  S.vv = o; o += ne;
+  S.bv = o; o += ne;
+  S.muc = o; o += nc;
+  S.total = o;
+  return S;
+}
+
+// One rollout's view of a batch-last array: element k at p[k * stride].
+template <typename T>
+struct Lane {
+  T* p;
+  int64_t s;
+  HD T& operator[](int64_t k) const { return p[k * s]; }
+  HD Lane at(int64_t off) const { return Lane{p + off * s, s}; }
+};
+
+// Scalar helpers with one overload set for float and double.
+HD float tsqrt(float x) { return sqrtf(x); }
+HD double tsqrt(double x) { return sqrt(x); }
+HD float tsin(float x) { return sinf(x); }
+HD double tsin(double x) { return sin(x); }
+HD float tcos(float x) { return cosf(x); }
+HD double tcos(double x) { return cos(x); }
+HD float tabs(float x) { return fabsf(x); }
+HD double tabs(double x) { return fabs(x); }
+HD float tpow(float x, float y) { return powf(x, y); }
+HD double tpow(double x, double y) { return pow(x, y); }
+template <typename T> HD T tmax(T a, T b) { return a > b ? a : b; }
+template <typename T> HD T tmin(T a, T b) { return a < b ? a : b; }
+template <typename T> HD T tclip(T x, T lo, T hi) { return tmin(tmax(x, lo), hi); }
+template <typename T> HD T tsign(T x) { return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0)); }
+template <typename T> HD T trsqrt(T x) { return T(1) / tsqrt(x); }
+
+template <typename T> HD T dot3(const T* a, const T* b) { return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]; }
+
+template <typename T> HD void cross3(const T* a, const T* b, T* o) {
+  T x = a[1] * b[2] - a[2] * b[1], y = a[2] * b[0] - a[0] * b[2], z = a[0] * b[1] - a[1] * b[0];
+  o[0] = x; o[1] = y; o[2] = z;
+}
+
+template <typename T> HD void qmul(const T* u, const T* v, T* o) {
+  T w = u[0] * v[0] - u[1] * v[1] - u[2] * v[2] - u[3] * v[3];
+  T x = u[0] * v[1] + u[1] * v[0] + u[2] * v[3] - u[3] * v[2];
+  T y = u[0] * v[2] - u[1] * v[3] + u[2] * v[0] + u[3] * v[1];
+  T z = u[0] * v[3] + u[1] * v[2] - u[2] * v[1] + u[3] * v[0];
+  o[0] = w; o[1] = x; o[2] = y; o[3] = z;
+}
+
+// v + 2 (w (u x v) + u x (u x v)), u = q[1:4]
+template <typename T> HD void qrot(const T* q, const T* v, T* o) {
+  T uv[3], uuv[3];
+  cross3(q + 1, v, uv);
+  cross3(q + 1, uv, uuv);
+  for (int k = 0; k < 3; ++k) o[k] = v[k] + T(2) * (q[0] * uv[k] + uuv[k]);
+}
+
+// Row-major 3x3 rotation matrix of a quaternion.
+template <typename T> HD void q2mat(const T* q, T* m) {
+  T w = q[0], x = q[1], y = q[2], z = q[3];
+  m[0] = 1 - 2 * (y * y + z * z); m[1] = 2 * (x * y - w * z); m[2] = 2 * (x * z + w * y);
+  m[3] = 2 * (x * y + w * z); m[4] = 1 - 2 * (x * x + z * z); m[5] = 2 * (y * z - w * x);
+  m[6] = 2 * (x * z - w * y); m[7] = 2 * (y * z + w * x); m[8] = 1 - 2 * (x * x + y * y);
+}
+
+template <typename T> HD void qnormalize(T* q) {
+  T s = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3];
+  T n = trsqrt(tmax(s, T(1e-15)));
+  for (int k = 0; k < 4; ++k) q[k] *= n;
+}
+
+template <typename T> HD void lload(Lane<T> a, int64_t off, int n, T* o) {
+  for (int k = 0; k < n; ++k) o[k] = a[off + k];
+}
+template <typename T> HD void lstore(Lane<T> a, int64_t off, int n, const T* v) {
+  for (int k = 0; k < n; ++k) a[off + k] = v[k];
+}
+
+}  // namespace jt

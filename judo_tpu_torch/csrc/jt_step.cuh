@@ -1,0 +1,397 @@
+// One physics step and the whole T-step rollout of one rollout: sensors,
+// narrowphase, constraint assembly, the accelerated projected-gradient dual
+// solve with the carried Collatz-Wielandt probe, and implicit-damping
+// integration. Scalar twin of judo_tpu_torch/physics/lane_step.py:step_l and
+// fused_rollout.py:rollout_lanes_reference.
+#pragma once
+
+#include "jt_collision.cuh"
+#include "jt_dynamics.cuh"
+
+namespace jt {
+
+constexpr double kMinval = 1e-15, kMinimp = 1e-4, kMaximp = 0.9999;
+
+template <typename T>
+HD T impedance(const T* si, T pos) {
+  const T dmin = si[0], dmax = si[1], width = tmax(si[2], T(kMinval));
+  const T mid = tmin(tmax(si[3], T(kMinimp)), T(kMaximp)), power = tmax(si[4], T(1));
+  const T x = tclip(tabs(pos) / width, T(0), T(1));
+  T y = x;
+  if (power != T(1)) {
+    y = x <= mid ? tpow(mid, T(1) - power) * tpow(x, power)
+                 : T(1) - tpow(T(1) - mid, T(1) - power) * tpow(T(1) - x, power);
+  }
+  return tclip(dmin + y * (dmax - dmin), T(kMinimp), T(kMaximp));
+}
+
+template <typename T>
+HD void sensors(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<T> out) {
+  const Lane<T> w = c.w;
+  for (int k = 0; k < c.s.nsensordata; ++k) out[k] = T(0);
+  for (int i = 0; i < c.s.nsensor; ++i) {
+    const int* si = c.mi + c.L.in + NI * i;
+    const int st = si[0], ot = si[1], oid = si[2], adr = si[3], reft = si[5], refid = si[6];
+    if (st == S_JOINTPOS) {
+      out[adr] = qpos[c.jnt_i(oid)[1]];
+    } else if (st == S_JOINTVEL) {
+      out[adr] = qvel[c.jnt_i(oid)[2]];
+    } else if (st == S_FRAMEPOS) {
+      int64_t src = -1;
+      if (ot == OBJ_SITE) src = c.S.sxpos + 3 * oid;
+      if (ot == OBJ_BODY) src = c.S.xipos + 3 * oid;
+      if (ot == OBJ_XBODY) src = c.S.xpos + 3 * oid;
+      if (src < 0) continue;
+      T val[3];
+      lload(w, src, 3, val);
+      if (refid >= 0 && reft == OBJ_SITE) {
+        T rel[3], m[9];
+        for (int k = 0; k < 3; ++k) rel[k] = val[k] - w[c.S.sxpos + 3 * refid + k];
+        lload(w, c.S.sxmat + 9 * refid, 9, m);
+        for (int j = 0; j < 3; ++j) val[j] = m[j] * rel[0] + m[3 + j] * rel[1] + m[6 + j] * rel[2];
+      }
+      for (int k = 0; k < 3; ++k) out[adr + k] = val[k];
+    } else if (st >= S_FRAMEXAXIS && st <= S_FRAMEZAXIS) {
+      const int col = st - S_FRAMEXAXIS;
+      int64_t src = -1;
+      if (ot == OBJ_SITE) src = c.S.sxmat + 9 * oid;
+      if (ot == OBJ_BODY || ot == OBJ_XBODY) src = c.S.xmat + 9 * oid;
+      if (src < 0) continue;
+      for (int k = 0; k < 3; ++k) out[adr + k] = w[src + 3 * k + col];
+    } else if (st == S_FRAMEQUAT) {
+      T q[4], o[4];
+      if (ot == OBJ_SITE) {
+        lload(w, c.S.xquat + 4 * c.mi[c.L.is + SI * oid], 4, q);
+        qmul(q, c.mf + c.L.fs + SF * oid + 3, o);
+      } else if (ot == OBJ_BODY) {
+        lload(w, c.S.xquat + 4 * oid, 4, q);
+        qmul(q, c.body_f(oid) + 10, o);
+      } else if (ot == OBJ_XBODY) {
+        lload(w, c.S.xquat + 4 * oid, 4, o);
+      } else {
+        continue;
+      }
+      for (int k = 0; k < 4; ++k) out[adr + k] = o[k];
+    }
+  }
+}
+
+template <typename T>
+HD void narrowphase(const Ctx<T>& c) {
+  const Lane<T> w = c.w;
+  for (int p = 0; p < c.s.npair; ++p) {
+    const int* pi = c.mi + c.L.ip + PI * p;
+    const T* pf = c.mf + c.L.fp + PF * p;
+    T x1[3], m1[9], x2[3], m2[9], d[4], pos[12], nrm[12];
+    lload(w, c.S.gxpos + 3 * pi[1], 3, x1);
+    lload(w, c.S.gxmat + 9 * pi[1], 9, m1);
+    lload(w, c.S.gxpos + 3 * pi[2], 3, x2);
+    lload(w, c.S.gxmat + 9 * pi[2], 9, m2);
+    if (pi[0] == PAIR_BOX_BOX) {
+      box_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm);
+    } else {
+      capsule_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm);
+    }
+    for (int s = 0; s < pi[4]; ++s) {
+      const int slot = pi[3] + s;
+      w[c.S.cdist + slot] = d[s];
+      lstore(w, c.S.cpos + 3 * slot, 3, pos + 3 * s);
+      lstore(w, c.S.cnorm + 3 * slot, 3, nrm + 3 * s);
+    }
+  }
+}
+
+// Constraint rows (masked by activity), and b = J qacc_smooth - aref.
+template <typename T>
+HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
+  const Lane<T> w = c.w;
+  const int nv = c.s.nv, nlim = c.s.nlim, nc = c.s.ncon;
+  const T impratio = c.mf[4];
+  for (int r = 0; r < nlim; ++r) {
+    const int* li = c.mi + c.L.il + LI * r;
+    const T* lf = c.mf + c.L.fl + LF * r;
+    const T side = lf[0], q = qpos[li[0]];
+    const T dist = side > T(0) ? q - lf[1] : lf[1] - q;
+    const T pos = dist - lf[2];
+    const T imp = impedance(lf + 3, pos);
+    for (int v = 0; v < nv; ++v) w[c.S.J + r * nv + v] = v == li[1] ? side : T(0);
+    w[c.S.aref + r] = -lf[9] * (side * qvel[li[1]]) - lf[8] * imp * pos;
+    w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
+    w[c.S.act + r] = dist < lf[2] ? T(1) : T(0);
+    w[c.S.diag + r] = lf[10];
+  }
+  for (int ci = 0; ci < nc; ++ci) {
+    const int* sI = c.mi + c.L.ic + CI * ci;
+    const T* sF = c.mf + c.L.fc + CF * ci;
+    const int* mask1 = c.mi + c.L.imask + nv * sI[0];
+    const int* mask2 = c.mi + c.L.imask + nv * sI[1];
+    const int r1 = c.body_i(sI[0])[1], r2 = c.body_i(sI[1])[1];
+    T p[3], n[3], t1[3], t2[3], arm1[3], arm2[3];
+    lload(w, c.S.cpos + 3 * ci, 3, p);
+    lload(w, c.S.cnorm + 3 * ci, 3, n);
+    for (int k = 0; k < 3; ++k) {
+      arm1[k] = p[k] - w[c.S.scom + 3 * r1 + k];
+      arm2[k] = p[k] - w[c.S.scom + 3 * r2 + k];
+    }
+    const bool use_x = tabs(n[0]) < T(0.5);
+    T t1r[3] = {use_x ? T(0) : -n[2], use_x ? n[2] : T(0), use_x ? -n[1] : n[0]};
+    const T nr = tsqrt(tmax(dot3(t1r, t1r), T(1e-24)));
+    const T inv = T(1) / tmax(nr, T(1e-12));
+    for (int k = 0; k < 3; ++k) t1[k] = t1r[k] * inv;
+    cross3(n, t1, t2);
+    const T* dirs[3] = {n, t1, t2};
+    const T dist = w[c.S.cdist + ci];
+    const T pos = dist - sF[8];
+    const T imp = impedance(sF + 3, pos);
+    const T active = dist < sF[8] ? T(1) : T(0);
+    const T reg_n = (T(1) - imp) / tmax(imp, T(kMinimp)) * sF[9];
+    for (int g = 0; g < 3; ++g) {
+      const int r = nlim + g * nc + ci;
+      T w1[3], w2[3];
+      cross3(arm1, dirs[g], w1);
+      cross3(arm2, dirs[g], w2);
+      T vel = T(0);
+      for (int v = 0; v < nv; ++v) {
+        const int64_t cd = c.S.cdof + 6 * v;
+        const T lin = w[cd + 3] * dirs[g][0] + w[cd + 4] * dirs[g][1] + w[cd + 5] * dirs[g][2];
+        const T ang1 = w[cd] * w1[0] + w[cd + 1] * w1[1] + w[cd + 2] * w1[2];
+        const T ang2 = w[cd] * w2[0] + w[cd + 1] * w2[1] + w[cd + 2] * w2[2];
+        const T jv = T(mask2[v]) * (lin + ang2) - T(mask1[v]) * (lin + ang1);
+        w[c.S.J + r * nv + v] = jv;
+        vel = vel + jv * qvel[v];
+      }
+      w[c.S.aref + r] = g == 0 ? -sF[2] * vel - sF[1] * imp * pos : -sF[2] * vel;
+      w[c.S.reg + r] = g == 0 ? reg_n : reg_n / impratio;
+      w[c.S.act + r] = active;
+      w[c.S.diag + r] = sF[9];
+    }
+  }
+  for (int r = 0; r < c.s.nefc; ++r) {
+    const bool on = w[c.S.act + r] > T(0);
+    T bv = T(0);
+    for (int v = 0; v < nv; ++v) {
+      const T j = w[c.S.J + r * nv + v] * w[c.S.act + r];
+      w[c.S.J + r * nv + v] = j;
+      bv = bv + j * w[c.S.qacc_s + v];
+    }
+    w[c.S.bvec + r] = bv - w[c.S.aref + r] * w[c.S.act + r];
+    if (!on) { w[c.S.reg + r] = T(1); w[c.S.diag + r] = T(1); }
+  }
+}
+
+// Projection onto the orthant (limit rows) x second-order cones (contacts).
+template <typename T>
+HD void project(const Ctx<T>& c, int64_t z) {
+  const Lane<T> w = c.w;
+  const int nlim = c.s.nlim, nc = c.s.ncon;
+  for (int r = 0; r < nlim; ++r) w[z + r] = tmax(w[z + r], T(0));
+  for (int ci = 0; ci < nc; ++ci) {
+    const T mu = w[c.S.muc + ci];
+    const T n = w[z + nlim + ci], t1 = w[z + nlim + nc + ci], t2 = w[z + nlim + 2 * nc + ci];
+    const T s = tsqrt(t1 * t1 + t2 * t2);
+    const bool inside = s <= mu * n, polar = mu * s <= -n;
+    const T a = (mu * s + n) / (T(1) + mu * mu);
+    const T coef = mu * a / tmax(s, T(kMinval));
+    const T n_out = inside ? n : (polar ? T(0) : a);
+    const T ts = inside ? T(1) : (polar ? T(0) : coef);
+    w[z + nlim + ci] = n_out;
+    w[z + nlim + nc + ci] = t1 * ts;
+    w[z + nlim + 2 * nc + ci] = t2 * ts;
+  }
+}
+
+// tv1 = J^T x (|J|^T x when absval). The sum over rows runs in a register:
+// accumulating in scratch would put a store-to-load round trip through the
+// cache on every one of the nefc * nv steps of the chain.
+template <typename T>
+HD void jt_vec(const Ctx<T>& c, int64_t x, bool absval) {
+  const Lane<T> w = c.w;
+  const int nv = c.s.nv, ne = c.s.nefc;
+  for (int v = 0; v < nv; ++v) {
+    T acc = T(0);
+    for (int r = 0; r < ne; ++r) {
+      const T j = w[c.S.J + r * nv + v];
+      acc = acc + (absval ? tabs(j) : j) * w[x + r];
+    }
+    w[c.S.tv1 + v] = acc;
+  }
+}
+
+// out = J M^-1 J^T x + reg x  (|J| |M^-1| |J|^T x + reg x when absval).
+template <typename T>
+HD void apply_op(const Ctx<T>& c, int64_t x, int64_t out, bool absval) {
+  const Lane<T> w = c.w;
+  const int nv = c.s.nv, ne = c.s.nefc;
+  jt_vec(c, x, absval);
+  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, absval);
+  for (int r = 0; r < ne; ++r) {
+    T acc = T(0);
+    for (int v = 0; v < nv; ++v) {
+      const T j = w[c.S.J + r * nv + v];
+      acc = acc + (absval ? tabs(j) : j) * w[c.S.tv2 + v];
+    }
+    w[out + r] = acc + w[c.S.reg + r] * w[x + r];
+  }
+}
+
+template <typename T>
+HD T lane_norm_inv(const Lane<T> w, int64_t x, int n) {
+  T s = T(0);
+  for (int r = 0; r < n; ++r) s = s + w[x + r] * w[x + r];
+  return trsqrt(tmax(s, T(kMinval)));
+}
+
+// APGD on the Jacobi-scaled dual; leaves the scaled solution g in S.f
+// (the force is g * inv_s), writes the carried warm start (fw) and probe (cwv).
+template <typename T>
+HD void dual_solve(const Ctx<T>& c) {
+  const Lane<T> w = c.w;
+  const int nv = c.s.nv, ne = c.s.nefc, nlim = c.s.nlim, nc = c.s.ncon;
+  for (int r = 0; r < ne; ++r) {
+    const T is = trsqrt(tmax(w[c.S.diag + r] + w[c.S.reg + r], T(kMinval)));
+    w[c.S.invs + r] = is;
+    for (int v = 0; v < nv; ++v) w[c.S.J + r * nv + v] = w[c.S.J + r * nv + v] * is;
+    w[c.S.reg + r] = w[c.S.reg + r] * is * is;
+    w[c.S.bvec + r] = w[c.S.bvec + r] * is;
+  }
+  for (int ci = 0; ci < nc; ++ci) {
+    const T mu = c.mf[c.L.fc + CF * ci];
+    w[c.S.muc + ci] = mu * w[c.S.invs + nlim + ci] / tmax(w[c.S.invs + nlim + nc + ci], T(kMinval));
+  }
+  // Collatz-Wielandt bound from one |A| apply on the carried probe
+  const T nin = lane_norm_inv(w, c.S.cwv, ne);
+  for (int r = 0; r < ne; ++r) w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7));
+  apply_op(c, c.S.vv, c.S.bv, true);
+  T L = T(-kBig);
+  for (int r = 0; r < ne; ++r) L = tmax(L, w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)));
+  const T nout = lane_norm_inv(w, c.S.bv, ne);
+  for (int r = 0; r < ne; ++r) w[c.S.cwv + r] = w[c.S.bv + r] * nout;
+  const T step = T(1) / tmax(L, T(kMinval));
+
+  for (int r = 0; r < ne; ++r) w[c.S.f + r] = w[c.S.fw + r] / tmax(w[c.S.invs + r], T(kMinval));
+  project(c, c.S.f);
+  for (int r = 0; r < ne; ++r) w[c.S.y + r] = w[c.S.f + r];
+  T tk = T(1);
+  for (int it = 0; it < c.s.iterations; ++it) {
+    apply_op(c, c.S.y, c.S.grad, false);
+    for (int r = 0; r < ne; ++r) {
+      w[c.S.grad + r] = w[c.S.grad + r] + w[c.S.bvec + r];
+      w[c.S.fnew + r] = w[c.S.y + r] - step * w[c.S.grad + r];
+    }
+    project(c, c.S.fnew);
+    const T t_new = T(0.5) * (T(1) + tsqrt(T(1) + T(4) * tk * tk));
+    const T mom = (tk - T(1)) / t_new;
+    T rs = T(0);
+    for (int r = 0; r < ne; ++r) rs = rs + w[c.S.grad + r] * (w[c.S.fnew + r] - w[c.S.f + r]);
+    const bool restart = rs > T(0);
+    for (int r = 0; r < ne; ++r) {
+      const T fn = w[c.S.fnew + r];
+      w[c.S.y + r] = restart ? fn : fn + mom * (fn - w[c.S.f + r]);
+      w[c.S.f + r] = fn;
+    }
+    tk = restart ? T(1) : t_new;
+  }
+  for (int r = 0; r < ne; ++r) w[c.S.fw + r] = w[c.S.f + r] * w[c.S.invs + r];
+}
+
+template <typename T>
+HD void quat_integrate(T* q, const T* om, T h) {
+  const T speed = tsqrt(tmax(dot3(om, om), T(1e-24)));
+  const T half = T(0.5) * (speed * h);
+  const T sn = tsin(half);
+  const T dq[4] = {tcos(half), om[0] / speed * sn, om[1] / speed * sn, om[2] / speed * sn};
+  T o[4];
+  qmul(q, dq, o);
+  const T n = tsqrt(tmax(o[0] * o[0] + o[1] * o[1] + o[2] * o[2] + o[3] * o[3], T(kMinval)));
+  for (int k = 0; k < 4; ++k) q[k] = o[k] / n;
+}
+
+// One physics step in place on this rollout's (qpos, qvel, fw, cwv).
+template <typename T>
+HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
+  const Lane<T> w = c.w;
+  const Lane<T> qpos = w.at(c.S.qpos), qvel = w.at(c.S.qvel);
+  const int nv = c.s.nv;
+  const T h = c.mf[0];
+  kinematics(c, qpos);
+  com_quantities(c);
+  crb_mass_matrix(c);
+  velocity_and_bias(c, qvel, c.mf + 1);
+  smooth_force(c, qpos, qvel, ctrl);
+  island_inverse(c, c.S.M, c.S.Minv);
+  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
+  sensors(c, qpos, qvel, sens_out);
+  for (int v = 0; v < nv; ++v) w[c.S.qacc + v] = w[c.S.qacc_s + v];
+  if (c.s.nefc > 0) {
+    narrowphase(c);
+    assemble(c, qpos, qvel);
+    dual_solve(c);
+    jt_vec(c, c.S.f, false);
+    island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+    for (int v = 0; v < nv; ++v) w[c.S.qacc + v] = w[c.S.qacc_s + v] + w[c.S.tv2 + v];
+  }
+  // implicit-in-velocity damping: qvel += (M + h D)^-1 (h M qacc)
+  for (int i = 0; i < nv; ++i) {
+    T acc = T(0);
+    for (int k = 0; k < nv; ++k) acc = acc + w[c.S.M + i * nv + k] * w[c.S.qacc + k];
+    w[c.S.tv1 + i] = h * acc;
+    w[c.S.M + i * nv + i] = w[c.S.M + i * nv + i] + h * c.dof_f(i)[2];
+  }
+  island_inverse(c, c.S.M, c.S.Minv);
+  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+  for (int v = 0; v < nv; ++v) qvel[v] = qvel[v] + w[c.S.tv2 + v];
+  for (int j = 0; j < c.s.njnt; ++j) {
+    const int* ji = c.jnt_i(j);
+    const int jtype = ji[0], qadr = ji[1], dadr = ji[2];
+    if (jtype == SLIDE || jtype == HINGE) {
+      qpos[qadr] = qpos[qadr] + h * qvel[dadr];
+    } else {
+      int qa = qadr, da = dadr;
+      if (jtype == FREE) {
+        for (int k = 0; k < 3; ++k) qpos[qadr + k] = qpos[qadr + k] + h * qvel[dadr + k];
+        qa += 3;
+        da += 3;
+      }
+      T q[4], om[3];
+      lload(qpos, qa, 4, q);
+      lload(qvel, da, 3, om);
+      quat_integrate(q, om, h);
+      lstore(qpos, qa, 4, q);
+    }
+  }
+}
+
+// The whole T-step rollout of rollout b (the body of the CUDA kernel, and of
+// the host twin's loop over b). Arrays are batch-last; see fused_rollout.py.
+template <typename T>
+HD void rollout_lane(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0,
+                     const T* ctrl, const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, int b) {
+  Ctx<T> c;
+  c.s = s;
+  c.L = make_layout(s);
+  c.S = make_scratch(s);
+  c.mi = mi;
+  c.mf = mf;
+  c.w = Lane<T>{scratch + b, s.B};
+  const Lane<T> w = c.w;
+  const int64_t B = s.B;
+  for (int k = 0; k < s.nq; ++k) w[c.S.qpos + k] = qpos0[k * B + b];
+  for (int k = 0; k < s.nv; ++k) w[c.S.qvel + k] = qvel0[k * B + b];
+  for (int r = 0; r < s.nefc; ++r) {
+    w[c.S.fw + r] = f0[r * B + b];
+    w[c.S.cwv + r] = T(1);
+  }
+  for (int t = 0; t < s.T; ++t) {
+    const Lane<const T> ctrl_t{ctrl + (int64_t)t * s.nu_ * B + b, B};
+    const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
+    for (int k = 0; k < s.ns_; ++k) sens_t[k] = T(0);
+    for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl_t, sens_t);
+    for (int k = 0; k < s.nq; ++k) oq[((int64_t)t * s.nq + k) * B + b] = w[c.S.qpos + k];
+    for (int k = 0; k < s.nv; ++k) ov[((int64_t)t * s.nv + k) * B + b] = w[c.S.qvel + k];
+    if (t == 0) {
+      for (int r = 0; r < s.nefc_; ++r) of0[r * B + b] = r < s.nefc ? w[c.S.fw + r] : T(0);
+    }
+  }
+}
+
+}  // namespace jt

@@ -1,0 +1,65 @@
+"""Control-knot splines, counterpart of ``judo_tpu/ops/splines.py``.
+
+Same semantics as ``scipy.interpolate.interp1d`` with kind in {"zero",
+"linear", "cubic"} along axis -2 and constant extrapolation with the edge
+knots; "cubic" is the not-a-knot C2 spline, solved as a dense (N, N) system.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _interval_index(ts: torch.Tensor, tq: torch.Tensor, n_max: int) -> torch.Tensor:
+    idx = torch.searchsorted(ts.contiguous(), tq.contiguous(), right=True) - 1
+    return torch.clamp(idx, 0, n_max)
+
+
+def _notaknot_slopes(ts: torch.Tensor, knots: torch.Tensor) -> torch.Tensor:
+    """Knot slopes of the not-a-knot cubic: ts (N,), knots (..., N, nu)."""
+    n = ts.shape[0]
+    dt = ts[1:] - ts[:-1]
+    slope = (knots[..., 1:, :] - knots[..., :-1, :]) / dt[:, None]
+    a = torch.zeros((n, n), dtype=knots.dtype, device=knots.device)
+    i = torch.arange(1, n - 1, device=knots.device)
+    a[i, i - 1] = dt[1:]
+    a[i, i] = 2.0 * (dt[:-1] + dt[1:])
+    a[i, i + 1] = dt[:-1]
+    b_mid = 3.0 * (dt[1:, None] * slope[..., :-1, :] + dt[:-1, None] * slope[..., 1:, :])
+    d0 = ts[2] - ts[0]
+    a[0, 0] = dt[1]
+    a[0, 1] = d0
+    b0 = ((dt[0] + 2.0 * d0) * dt[1] * slope[..., 0, :] + dt[0] ** 2 * slope[..., 1, :]) / d0
+    dn = ts[-1] - ts[-3]
+    a[-1, -1] = dt[-2]
+    a[-1, -2] = dn
+    bn = (dt[-1] ** 2 * slope[..., -2, :] + (2.0 * dn + dt[-1]) * dt[-2] * slope[..., -1, :]) / dn
+    b = torch.cat([b0[..., None, :], b_mid, bn[..., None, :]], dim=-2)
+    return torch.linalg.solve(a, b)
+
+
+def eval_spline(ts: torch.Tensor, knots: torch.Tensor, tq: torch.Tensor, order: str = "linear") -> torch.Tensor:
+    """Evaluate knots (..., N, nu) at times ts (N,) on queries tq (T,) -> (..., T, nu)."""
+    n = ts.shape[0]
+    if order == "zero":
+        return torch.index_select(knots, -2, _interval_index(ts, tq, n - 1))
+    tq_c = torch.minimum(torch.maximum(tq, ts[0]), ts[-1])
+    idx = _interval_index(ts, tq_c, n - 2)
+    t0 = ts[idx]
+    y0 = torch.index_select(knots, -2, idx)
+    y1 = torch.index_select(knots, -2, idx + 1)
+    h = ts[idx + 1] - t0
+    x = ((tq_c - t0) / h)[:, None]
+    if order == "linear":
+        return y0 + (y1 - y0) * x
+    if order == "cubic":
+        if n < 4:
+            raise ValueError("cubic splines require at least 4 knots (reference forces num_nodes>=4)")
+        slopes = _notaknot_slopes(ts, knots)
+        s0 = torch.index_select(slopes, -2, idx) * h[:, None]
+        s1 = torch.index_select(slopes, -2, idx + 1) * h[:, None]
+        dy = y1 - y0
+        c2 = 3.0 * dy - 2.0 * s0 - s1
+        c3 = -2.0 * dy + s0 + s1
+        return y0 + x * (s0 + x * (c2 + x * c3))
+    raise ValueError(f"unknown spline order: {order}")

@@ -1,0 +1,76 @@
+"""Optimizer base: configs plus the pure sample/update interface
+(counterpart of ``judo_tpu/optimizers/base.py``).
+
+    params()                                     -> hyperparameters as tensors
+    init_state(dtype, device)                    -> carried optimizer state
+    sample(params, state, nominal, generator)    -> (samples (R, N, nu), state)
+    update(params, state, samples, rewards)      -> (nominal (N, nu), state)
+    pre_optimization(params, state, old_t, new_t) -> state
+
+Sampling draws from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Generic, TypeVar
+
+import torch
+
+from judo_tpu.config import OverridableConfig
+from judo_tpu.gui import slider
+
+
+@slider("num_nodes", 3, 12, 1)
+@dataclass
+class OptimizerConfig(OverridableConfig):
+    num_rollouts: int = 16
+    num_nodes: int = 4
+    use_noise_ramp: bool = False
+    noise_ramp: float = 2.5
+
+
+OptimizerConfigT = TypeVar("OptimizerConfigT", bound=OptimizerConfig)
+
+
+class Optimizer(Generic[OptimizerConfigT]):
+    """Base class of the sampling optimizers."""
+
+    def __init__(self, config: OptimizerConfigT, nu: int) -> None:
+        self.config = config
+        self.nu = nu
+
+    @property
+    def num_rollouts(self) -> int:
+        return self.config.num_rollouts
+
+    @property
+    def num_nodes(self) -> int:
+        return self.config.num_nodes
+
+    @property
+    def use_noise_ramp(self) -> bool:
+        return self.config.use_noise_ramp
+
+    def params(self, dtype: torch.dtype = torch.float32, device: Any = "cpu") -> Any:
+        return {}
+
+    def init_state(self, dtype: torch.dtype = torch.float32, device: Any = "cpu") -> Any:
+        return {}
+
+    def pre_optimization(self, params: Any, state: Any, old_times: torch.Tensor, new_times: torch.Tensor) -> Any:
+        return state
+
+    def stop_cond(self) -> bool:
+        return False
+
+    def _ramp(self, dtype: torch.dtype, device: Any) -> torch.Tensor:
+        """Noise ramp column: noise_ramp * linspace(1/N, 1, N)."""
+        n = self.num_nodes
+        return self.config.noise_ramp * torch.linspace(1.0 / n, 1.0, n, dtype=dtype, device=device)[:, None]
+
+    def sample(self, params: Any, state: Any, nominal: torch.Tensor, generator: torch.Generator):
+        raise NotImplementedError
+
+    def update(self, params: Any, state: Any, samples: torch.Tensor, rewards: torch.Tensor):
+        raise NotImplementedError

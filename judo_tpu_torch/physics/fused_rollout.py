@@ -1,0 +1,316 @@
+"""The fused T-step rollout (counterpart of ``judo_tpu/physics/pallas_step.py``).
+
+``fused_rollout`` is the wrapper of the hand-written CUDA kernel
+(``csrc/fused_rollout.cu``, the port of the Pallas kernel
+``pallas_step.py::_build_fused_rollout``). For CUDA tensors it launches the
+kernel or raises; for CPU tensors it runs ``rollout_lanes_reference``, the
+plain PyTorch version: ``step_l`` in a Python loop over T with the same carry
+semantics. ``rollout_lanes`` is the public entry with the JAX package's
+batch-first layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from judo_tpu_torch.physics.lane_collision import pair_groups, pair_params_np
+from judo_tpu_torch.physics.lane_engine import dof_islands
+from judo_tpu_torch.physics.lane_step import implicit_damping_np, kb_from_solref_np, step_l
+from judo_tpu_torch.physics.model import (
+    GEOM_BOX,
+    PhysicsModel,
+    lane_supported,
+    limit_joints,
+    num_constraint_rows,
+)
+
+
+class JtSizes(ctypes.Structure):
+    """Mirror of ``JtSizes`` in csrc/jt_common.cuh."""
+
+    _fields_ = [
+        (name, ctypes.c_int)
+        for name in (
+            "B", "T", "substeps", "iterations", "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite",
+            "nsensor", "nsensordata", "nlim", "npair", "ncon", "nefc", "nisl", "nu_", "ns_", "nefc_",
+        )
+    ]
+
+
+class LaneRolloutOutput(NamedTuple):
+    states: torch.Tensor  # (R, T, nq + nv)
+    sensordata: torch.Tensor  # (R, T, nsensordata)
+    efc0: torch.Tensor  # (R, max(nefc, 1)) step-0 constraint forces
+
+
+def solver_iters(m: PhysicsModel, iterations: int | None) -> int:
+    """APGD iterations of a step (lane_step.py:828)."""
+    return max(m.solver_iterations if iterations is None else iterations, 8)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def rollout_lanes_reference(
+    m: PhysicsModel,
+    qpos: torch.Tensor,  # (nq, B)
+    qvel: torch.Tensor,  # (nv, B)
+    ctrl: torch.Tensor,  # (T, nu_, B)
+    f0: torch.Tensor,  # (nefc_, B)
+    substeps: int = 1,
+    iterations: int | None = None,
+):
+    """The plain version of the kernel: -> ((T, nq, B), (T, nv, B), (T, ns_, B), (nefc_, B))."""
+    nefc = num_constraint_rows(m)
+    T, B = ctrl.shape[0], qpos.shape[-1]
+    f = f0[:nefc] if nefc else None
+    v = torch.ones_like(f0[:nefc]) if nefc else None
+    qps, qvs, senss = [], [], []
+    efc0 = torch.zeros_like(f0)
+    for t in range(T):
+        sens = None
+        for _ in range(substeps):
+            out = step_l(m, qpos, qvel, ctrl[t, : m.nu], f, iterations, cw_v=v)
+            qpos, qvel, sens = out.qpos, out.qvel, out.sensordata
+            if nefc:
+                f, v = out.efc_force, out.cw_v
+        qps.append(qpos)
+        qvs.append(qvel)
+        senss.append(sens if m.nsensordata else qpos.new_zeros((1, B)))
+        if t == 0 and nefc:
+            efc0 = f
+    return torch.stack(qps), torch.stack(qvs), torch.stack(senss), efc0
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def pack_model(m: PhysicsModel) -> dict:
+    """The model as the kernel reads it: an int32 and a float64 array in the
+    record layouts of csrc/jt_common.cuh, plus the counts of a JtSizes."""
+    cached = m._packed.get("packed")
+    if cached is not None:
+        return cached
+    lane_supported(m)
+    I: list = []
+    F: list = [float(m.np64("timestep")), *(m.np64("gravity") * (1.0 if m.gravity_enabled else 0.0)), float(m.np64("impratio"))]
+    f64 = m.np64
+    mass = f64("body_mass")
+    sub_mass = mass.copy()
+    for b in range(m.nbody - 1, 0, -1):
+        sub_mass[m.body_parentid[b]] += sub_mass[b]
+    bp, bq, bip, biq, binr = f64("body_pos"), f64("body_quat"), f64("body_ipos"), f64("body_iquat"), f64("body_inertia")
+    for b in range(m.nbody):
+        I += [m.body_parentid[b], m.body_rootid[b], m.body_jntadr[b], m.body_jntnum[b]]
+    floats_body = [[*bp[b], *bq[b], *bip[b], *biq[b], mass[b], *binr[b], sub_mass[b]] for b in range(m.nbody)]
+    jp, ja, q0 = f64("jnt_pos"), f64("jnt_axis"), f64("qpos0")
+    stiff, qs, afr = f64("jnt_stiffness"), f64("qpos_spring"), f64("jnt_actfrcrange")
+    for j in range(m.njnt):
+        I += [m.jnt_type[j], m.jnt_qposadr[j], m.jnt_dofadr[j], m.jnt_bodyid[j], int(m.jnt_actfrclimited[j])]
+    floats_jnt = [
+        [*jp[j], *ja[j], q0[m.jnt_qposadr[j]], stiff[j], qs[m.jnt_qposadr[j]], *afr[j]] for j in range(m.njnt)
+    ]
+    for d in range(m.nv):
+        I += [m.dof_bodyid[d], m.dof_parentid[d]]
+    damp = implicit_damping_np(m)
+    floats_dof = [[f64("dof_damping")[d], f64("dof_armature")[d], damp[d]] for d in range(m.nv)]
+    gp, gq, sp, sq = f64("geom_pos"), f64("geom_quat"), f64("site_pos"), f64("site_quat")
+    I += list(m.geom_bodyid)
+    floats_geom = [[*gp[g], *gq[g]] for g in range(m.ngeom)]
+    I += list(m.site_bodyid)
+    floats_site = [[*sp[s], *sq[s]] for s in range(m.nsite)]
+    gear, gain, bias = f64("actuator_gear")[:, 0], f64("actuator_gainprm")[:, 0], f64("actuator_biasprm")[:, :3]
+    cr, fr = f64("actuator_ctrlrange"), f64("actuator_forcerange")
+    floats_act = []
+    for u in range(m.nu):
+        j = m.actuator_trnid[u]
+        I += [m.jnt_qposadr[j], m.jnt_dofadr[j], int(m.actuator_ctrllimited[u]), int(m.actuator_forcelimited[u])]
+        floats_act.append([gear[u], gain[u], *bias[u], *cr[u], *fr[u]])
+    for i in range(m.nsensor):
+        I += [m.sensor_type[i], m.sensor_objtype[i], m.sensor_objid[i], m.sensor_adr[i], m.sensor_dim[i],
+              m.sensor_reftype[i], m.sensor_refid[i]]
+    ts = float(f64("timestep"))
+    jr, jm, jsr, jsi, inv_dof = f64("jnt_range"), f64("jnt_margin"), f64("jnt_solref"), f64("jnt_solimp"), f64("dof_invweight0")
+    floats_lim = []
+    for j in limit_joints(m):
+        k, bb = kb_from_solref_np(jsr[j], jsi[j], ts)
+        for side, rng in ((1.0, jr[j, 0]), (-1.0, jr[j, 1])):
+            I += [m.jnt_qposadr[j], m.jnt_dofadr[j]]
+            floats_lim.append([side, rng, jm[j], *jsi[j], k, bb, inv_dof[m.jnt_dofadr[j]]])
+    floats_pair, slot_i, floats_slot = [], [], []
+    size = f64("geom_size")
+    bi = f64("body_invweight0")
+    npair = ncon = 0
+    if m.contact_enabled:
+        for sig, pairs in pair_groups(m):
+            nslot = 4 if sig == (GEOM_BOX, GEOM_BOX) else 2
+            for g1, g2 in pairs:
+                I += [0 if nslot == 4 else 1, g1, g2, ncon, nslot]
+                floats_pair.append([*size[g1], *size[g2]])
+                mu, sr, si, mg = pair_params_np(m, g1, g2)
+                k, bb = kb_from_solref_np(sr, si, ts)
+                b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+                invw = max(bi[b1, 0] + bi[b2, 0], 1e-15)
+                for _ in range(nslot):
+                    slot_i += [b1, b2]
+                    floats_slot.append([mu, k, bb, *si, mg, invw])
+                npair += 1
+                ncon += nslot
+    I += slot_i
+    islands = dof_islands(m)
+    for s, e in islands:
+        I += [s, e - s]
+    I += [int(v) for v in np.asarray(m.body_dof_mask).reshape(-1)]
+    for block in (floats_body, floats_jnt, floats_dof, floats_geom, floats_site, floats_act, floats_lim,
+                  floats_pair, floats_slot):
+        for rec in block:
+            F += [float(x) for x in rec]
+    nefc = num_constraint_rows(m)
+    assert nefc == len(floats_lim) + 3 * ncon, (nefc, len(floats_lim), ncon)
+    packed = {
+        "mi": np.asarray(I, np.int32),
+        "mf": np.asarray(F, np.float64),
+        "counts": dict(
+            nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom, nsite=m.nsite,
+            nsensor=m.nsensor, nsensordata=m.nsensordata, nlim=len(floats_lim), npair=npair, ncon=ncon,
+            nefc=nefc, nisl=len(islands), nu_=max(m.nu, 1), ns_=max(m.nsensordata, 1), nefc_=max(nefc, 1),
+        ),
+    }
+    m._packed["packed"] = packed
+    return packed
+
+
+def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | None) -> JtSizes:
+    return JtSizes(B=B, T=T, substeps=substeps, iterations=solver_iters(m, iterations), **pack_model(m)["counts"])
+
+
+def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> int:
+    """Assert the packed model matches the library's layout; return scratch elements per lane."""
+    nint, nflt = ctypes.c_int(), ctypes.c_int()
+    lib.jt_model_sizes(ctypes.byref(sizes), ctypes.byref(nint), ctypes.byref(nflt))
+    pk = pack_model(m)
+    if (nint.value, nflt.value) != (pk["mi"].size, pk["mf"].size):
+        raise RuntimeError(f"model packing {pk['mi'].size, pk['mf'].size} != kernel layout {nint.value, nflt.value}")
+    return int(lib.jt_scratch_per_lane(ctypes.byref(sizes)))
+
+
+def _check_inputs(m: PhysicsModel, qpos, qvel, ctrl, f0):
+    pk = pack_model(m)["counts"]
+    B = qpos.shape[-1]
+    want = {"qpos": (m.nq, B), "qvel": (m.nv, B), "ctrl": (ctrl.shape[0], pk["nu_"], B), "f0": (pk["nefc_"], B)}
+    for name, x in (("qpos", qpos), ("qvel", qvel), ("ctrl", ctrl), ("f0", f0)):
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want[name]}")
+        if x.dtype != qpos.dtype or x.device != qpos.device:
+            raise ValueError(f"{name} must share qpos's dtype and device")
+    if qpos.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {qpos.dtype}")
+
+
+def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream):
+    """Run the library's fused rollout on contiguous tensors; returns the outputs."""
+    B, T = qpos.shape[-1], ctrl.shape[0]
+    sizes = _sizes(m, B, T, substeps, iterations)
+    per_lane = _check_layout(lib, m, sizes)
+    dev, dtype = qpos.device, qpos.dtype
+    key = ("packed_dev", str(dev), dtype)
+    mt = m._packed.get(key)
+    if mt is None:
+        pk = pack_model(m)
+        mt = (torch.as_tensor(pk["mi"]).to(dev), torch.as_tensor(pk["mf"], dtype=dtype).to(dev))
+        m._packed[key] = mt
+    mi, mf = mt
+    c = pack_model(m)["counts"]
+    ins = [x.contiguous() for x in (qpos, qvel, ctrl, f0)]
+    oq = torch.empty((T, m.nq, B), dtype=dtype, device=dev)
+    ov = torch.empty((T, m.nv, B), dtype=dtype, device=dev)
+    os_ = torch.empty((T, c["ns_"], B), dtype=dtype, device=dev)
+    of0 = torch.empty((c["nefc_"], B), dtype=dtype, device=dev)
+    scratch = torch.empty((per_lane * B,), dtype=dtype, device=dev)
+    fn = lib.jt_fused_rollout_f64 if dtype == torch.float64 else lib.jt_fused_rollout_f32
+    args = [mi, mf, *ins, oq, ov, os_, of0, scratch]
+    err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
+    return oq, ov, os_, of0
+
+
+def fused_rollout(
+    m: PhysicsModel,
+    qpos: torch.Tensor,  # (nq, B)
+    qvel: torch.Tensor,  # (nv, B)
+    ctrl: torch.Tensor,  # (T, nu_, B)
+    f0: torch.Tensor,  # (nefc_, B)
+    substeps: int = 1,
+    iterations: int | None = None,
+):
+    """The fused rollout, batch-last: -> ((T,nq,B), (T,nv,B), (T,ns_,B), (nefc_,B)).
+
+    CUDA tensors launch the kernel (``fused_rollout.launches`` counts each
+    launch); CPU tensors run the plain version. Nothing else is accepted.
+    """
+    _check_inputs(m, qpos, qvel, ctrl, f0)
+    if qpos.device.type == "cpu":
+        return rollout_lanes_reference(m, qpos, qvel, ctrl, f0, substeps, iterations)
+    if qpos.device.type != "cuda":
+        raise ValueError(f"fused_rollout runs on cuda or cpu tensors, not {qpos.device}")
+    from judo_tpu_torch import _build
+
+    lib = _build.load("cuda")
+    with torch.cuda.device(qpos.device):
+        stream = torch.cuda.current_stream(qpos.device).cuda_stream
+        out = _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream)
+    fused_rollout.launches += 1
+    return out
+
+
+fused_rollout.launches = 0
+
+
+def fused_rollout_host_twin(
+    m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor, f0: torch.Tensor,
+    substeps: int = 1, iterations: int | None = None,
+):
+    """The kernel's own arithmetic built with g++ and run on the CPU, one
+    rollout after another (csrc/fused_rollout_host.cpp). For tests."""
+    _check_inputs(m, qpos, qvel, ctrl, f0)
+    from judo_tpu_torch import _build
+
+    return _launch(_build.load("host"), m, qpos, qvel, ctrl, f0, substeps, iterations, None)
+
+
+def rollout_lanes(
+    m: PhysicsModel,
+    qpos0: torch.Tensor,  # (R, nq)
+    qvel0: torch.Tensor,  # (R, nv)
+    controls: torch.Tensor,  # (R, T, nu)
+    physics_substeps: int = 1,
+    iterations: int | None = None,
+    efc_warm: torch.Tensor | None = None,  # (R, nefc) onset warm start
+) -> LaneRolloutOutput:
+    """Batched rollout with batch-first states at the boundary (the semantics
+    of pallas_step.rollout_lanes: post-step (qpos, qvel) and the last
+    substep's pre-integration sensors per control, plus the step-0 forces)."""
+    R, T = controls.shape[0], controls.shape[1]
+    nefc = num_constraint_rows(m)
+    ns = m.nsensordata
+    dtype, dev = qpos0.dtype, qpos0.device
+    qp = qpos0.T.contiguous()
+    qv = qvel0.T.contiguous()
+    ct = controls.permute(1, 2, 0) if m.nu else torch.zeros((T, 1, R), dtype=dtype, device=dev)
+    if efc_warm is None:
+        f0 = torch.zeros((max(nefc, 1), R), dtype=dtype, device=dev)
+    else:
+        f0 = efc_warm.T.to(dtype)
+    qps, qvs, senss, f0_out = fused_rollout(m, qp, qv, ct.contiguous(), f0.contiguous(), physics_substeps, iterations)
+    states = torch.cat([qps, qvs], dim=1).permute(2, 0, 1)
+    senss = senss.permute(2, 0, 1)[:, :, :ns]
+    return LaneRolloutOutput(states=states, sensordata=senss, efc0=f0_out.T[:, : max(nefc, 1)])

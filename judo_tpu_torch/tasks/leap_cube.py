@@ -1,0 +1,90 @@
+"""LEAP cube in-hand rotation (counterpart of ``judo_tpu/tasks/leap_cube.py``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from judo_tpu.gui import slider
+from judo_tpu.models.leap import leap_cube_xml_path
+from judo_tpu_torch.ops.math import quat_diff_so3
+from judo_tpu_torch.physics.model import PhysicsModel
+from judo_tpu_torch.tasks.base import Task, TaskConfig, model_from_mujoco
+
+QPOS_HOME = np.array(
+    [
+        0.0, 0.03, 0.1, 1.0, 0.0, 0.0, 0.0,  # cube free joint
+        0.5, -0.75, 0.75, 0.25,  # index
+        0.5, 0.0, 0.75, 0.25,  # middle
+        0.5, 0.75, 0.75, 0.25,  # ring
+        0.65, 0.9, 0.75, 0.6,  # thumb
+    ]
+)  # fmt: skip
+
+# The cube at rest in the palm-up hand: 60 mujoco steps of the planning model
+# from QPOS_HOME with the reset command held. A state with active contacts,
+# for tests and the GPU smoke run.
+QPOS_REST = np.array(
+    [
+        -4.2815700514839113e-04, 4.8277564356308048e-02, 5.8354075600546791e-02, 9.9290809501983157e-01,
+        1.3728913861247964e-03, -1.1881414127176297e-01, 3.8509540614784735e-03, 3.3791624444885709e-01,
+        -7.6227704689213349e-01, 7.1621350616121360e-01, 2.4576482792734192e-01, 3.0808645898711717e-01,
+        7.3183457581372824e-05, 7.1710851813312948e-01, 2.4603755206622688e-01, 3.1734526932097723e-01,
+        7.5785413676987157e-01, 7.1599852646510720e-01, 2.4571117959231101e-01, 5.8082202367244340e-01,
+        8.4937889884897322e-01, 7.6207848464996075e-01, 6.1228211488531403e-01,
+    ]
+)  # fmt: skip
+
+
+@slider("w_pos", 0.0, 200.0)
+@slider("w_rot", 0.0, 1.0)
+@dataclass
+class LeapCubeConfig(TaskConfig):
+    """Tracking weights."""
+
+    w_pos: float = 100.0
+    w_rot: float = 0.1
+
+
+class LeapCube(Task[LeapCubeConfig]):
+    """Rotate the cube in-hand to track goal orientations; the goal arrives
+    through sim metadata ("goal_quat"), identity when absent."""
+
+    name: str = "leap_cube"
+    config_t: type[LeapCubeConfig] = LeapCubeConfig
+
+    def __init__(self, device: Any = "cpu", dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(device=device, dtype=dtype)
+        self.goal_pos = np.array([0.0, 0.03, 0.1])
+        self.qpos_home = np.asarray(self.extras["qpos_home"], np.float64)
+        self.reset_command = np.asarray(self.extras["reset_command"], np.float64)
+        self.reset()
+
+    @classmethod
+    def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
+        m, extras = model_from_mujoco(leap_cube_xml_path(), cls.planning_solver_iterations)
+        return m, {**extras, "qpos_home": QPOS_HOME, "reset_command": QPOS_HOME[7:].copy()}
+
+    def reward(self, states, sensors, controls, params, system_metadata=None) -> torch.Tensor:
+        """Position + SO(3) log-map orientation tracking, averaged over time."""
+        metadata = system_metadata or {}
+        goal_quat = metadata.get("goal_quat")
+        if goal_quat is None:
+            goal_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=states.dtype, device=states.device)
+        goal_pos = torch.as_tensor(self.goal_pos, dtype=states.dtype, device=states.device)
+        pos_diff = states[..., :3] - goal_pos
+        quat_err = quat_diff_so3(states[..., 3:7], goal_quat)
+        pos_cost = params["w_pos"] * 0.5 * torch.square(pos_diff).sum(-1).mean(-1)
+        rot_cost = params["w_rot"] * 0.5 * torch.square(quat_err).sum(-1).mean(-1)
+        return -(pos_cost + rot_cost)
+
+    def optimizer_warm_start(self) -> np.ndarray:
+        return self.reset_command.copy()
+
+    def reset(self) -> None:
+        self.qpos = self.qpos_home.copy()
+        self.qvel = np.zeros(self.nv)
+        self.time = 0.0
