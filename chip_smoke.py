@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port: builds the kernels, holds each against
-its plain PyTorch version, drives the main path, and prints the results.
+its plain PyTorch version, drives every path through its entry points, and
+prints the results.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -7,16 +8,29 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits non-zero before the final line):
 1. card: name and power limit from nvidia-smi; a CUDA device is required;
-2. build: compile the CUDA kernels from judo_tpu_torch/csrc;
-3. kernel vs plain: the fused rollout kernel against rollout_lanes_reference
-   on the leap model, 320 rollouts, 5 steps, warm-start forces carried, in
-   float64 and float32;
-4. main path: make_controller("leap_cube", "mppi") on cuda, float32, 320
-   rollouts, 3 warm-up and 20 timed update_action calls; the kernel's launch
-   count must grow by one per solve; plus one float64 solve on 16 rollouts
-   with shared noise held against the same solve on the CPU;
-5. timing: one 320-rollout, 100-step rollout through the kernel and through
-   the plain version.
+2. build: compile the CUDA kernels from judo_tpu_torch/csrc (one nvcc per
+   source, in parallel); print each kernel's registers and spills;
+3. kernel vs plain version, float64 and float32:
+   - fused_rollout (K1) against rollout_lanes_reference on the leap model,
+     320 rollouts, 5 steps, warm-start forces carried;
+   - fused_policy_rollout (K2) against policy_rollout_lanes_reference on
+     spot_navigate, 24 and 80 rollouts, 3 policy ticks, a random nonzero
+     starting policy output;
+   - physics_step (K3) against step_l with a cold probe, leap at 320 and
+     spot at 24 rollouts;
+4. paths, each driven with every launch count set to 0 just before it and
+   read just after:
+   - leap: make_controller("leap_cube", "mppi") on cuda, float32, 320
+     rollouts, 3 warm-up and 10 timed solves, one K1 launch per solve;
+   - spot: make_controller("spot_navigate", "mppi") on cuda, float32, 24
+     rollouts, 2 s horizon (100 policy ticks x 2 physics steps), 1 warm-up
+     and 5 timed solves, one K2 launch per solve;
+   - single step: physics_step on the leap model at 320 rollouts;
+5. one float64 solve per task, cuda against cpu with shared noise;
+6. timing with CUDA events: each kernel against its plain version, and its
+   bound (the larger of its bytes over the memory rate and its operations
+   over the float32 rate, counted from the shapes of this run); K2 also with
+   no physics substeps, which leaves the policy's share of a tick.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -34,6 +48,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "solve_f64": 1e-6}
 B_MAIN, T_CHECK, T_FULL = 320, 5, 100
+R_SPOT, T_POLICY_CHECK = 24, 3
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
+# the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def card_info() -> str:
@@ -46,10 +64,14 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def leap_inputs(m, B: int, T: int, seed: int, dtype, device):
-    """Perturbed contact states and controls around the resting cube."""
+def tensor(x, dtype, device):
     import torch
 
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+
+def leap_inputs(m, B: int, T: int, seed: int, dtype, device):
+    """Perturbed contact states and controls around the resting cube."""
     from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
     rng = np.random.default_rng(seed)
@@ -57,14 +79,30 @@ def leap_inputs(m, B: int, T: int, seed: int, dtype, device):
     qp[:, :3] += 5e-4 * rng.standard_normal((B, 3))
     qv = 0.05 * rng.standard_normal((B, m.nv))
     ct = np.tile(QPOS_REST[7:], (T, B, 1)).transpose(0, 2, 1) + 0.1 * rng.standard_normal((T, m.nu, B))
-
-    def t(x):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
-
-    return t(qp.T), t(qv.T), t(ct)
+    return tensor(qp.T, dtype, device), tensor(qv.T, dtype, device), tensor(ct, dtype, device)
 
 
-def kernel_vs_plain(dtype_name: str) -> dict:
+def spot_inputs(task, B: int, T: int, seed: int, dtype, device):
+    """Standing states with small velocities, a random nonzero policy output,
+    and walking commands (base velocity, stowed arm, standing height)."""
+    from judo_tpu_torch.tasks.spot import spot_constants as sc
+
+    rng = np.random.default_rng(seed)
+    qp = np.tile(task.qpos, (B, 1)).T
+    qv = 0.05 * rng.standard_normal((task.nv, B))
+    po = 0.3 * rng.standard_normal((12, B))
+    cmd = np.zeros((T, 25, B))
+    cmd[:, :3] = 0.5 * rng.standard_normal((T, 3, B))
+    cmd[:, 3:10] = sc.ARM_STOWED_POS[None, :, None]
+    cmd[:, 24] = sc.STANDING_HEIGHT_CMD
+    return [tensor(x, dtype, device) for x in (qp, qv, po, cmd)]
+
+
+def max_errs(names, ref, out) -> dict:
+    return {n: float((a - b).abs().max()) for n, a, b in zip(names, ref, out)}
+
+
+def k1_vs_plain(dtype_name: str) -> dict:
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
@@ -73,14 +111,13 @@ def kernel_vs_plain(dtype_name: str) -> dict:
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
     m = LeapCube(device="cuda", dtype=dtype).planning_model
     qp, qv, ct = leap_inputs(m, B_MAIN, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
-    nefc = num_constraint_rows(m)
-    zeros = torch.zeros((nefc, B_MAIN), dtype=dtype, device="cuda")
+    zeros = torch.zeros((num_constraint_rows(m), B_MAIN), dtype=dtype, device="cuda")
     # onset forces from one plain step: the carried warm start of a real solve
     f0 = rollout_lanes_reference(m, qp, qv, ct[:1], zeros, 1, 8)[3]
     ref = rollout_lanes_reference(m, qp, qv, ct[1:], f0, 1, 8)
     out = fused_rollout(m, qp, qv, ct[1:].contiguous(), f0, 1, 8)
     torch.cuda.synchronize()
-    err = {n: float((a - b).abs().max()) for n, a, b in zip(("states", "qvel", "sensors", "efc0"), ref, out)}
+    err = max_errs(("states", "qvel", "sensors", "efc0"), ref, out)
     err["states"] = max(err["states"], err.pop("qvel"))
     scale = float(ref[3].abs().max())
     err["efc0_rel"] = err["efc0"] / max(scale, 1e-30)
@@ -88,11 +125,96 @@ def kernel_vs_plain(dtype_name: str) -> dict:
     return err
 
 
-def main_path() -> dict:
+def k2_vs_plain(dtype_name: str, B: int) -> dict:
+    import torch
+
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout, policy_rollout_lanes_reference
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    dtype = torch.float64 if dtype_name == "f64" else torch.float32
+    task = SpotNavigate(device="cuda", dtype=dtype)
+    args = spot_inputs(task, B, T_POLICY_CHECK, seed=5, dtype=dtype, device="cuda")
+    ref = policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
+    out = fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8)
+    torch.cuda.synchronize()
+    err = max_errs(("states", "qvel", "sensors", "pout"), ref, out)
+    err["states"] = max(err["states"], err.pop("qvel"))
+    return err
+
+
+def k3_vs_plain(dtype_name: str, scene: str) -> dict:
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import num_constraint_rows, physics_step, physics_step_reference
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    dtype = torch.float64 if dtype_name == "f64" else torch.float32
+    if scene == "leap":
+        m = LeapCube(device="cuda", dtype=dtype).planning_model
+        qp, qv, ct = leap_inputs(m, B_MAIN, 1, seed=6, dtype=dtype, device="cuda")
+        ctrl = ct[0]
+    else:
+        task = SpotNavigate(device="cuda", dtype=dtype)
+        m = task.planning_model
+        qp, qv, _, _ = spot_inputs(task, R_SPOT, 1, seed=7, dtype=dtype, device="cuda")
+        ctrl = tensor(np.tile(np.r_[task.qpos[7:26]][:, None], (1, R_SPOT)), dtype, "cuda")
+    f = torch.zeros((num_constraint_rows(m), qp.shape[-1]), dtype=dtype, device="cuda")
+    ref = physics_step_reference(m, qp, qv, ctrl, f, 8)
+    out = physics_step(m, qp, qv, ctrl, f, 8)
+    torch.cuda.synchronize()
+    err = max_errs(("states", "qvel", "sensors", "efc"), ref, out)
+    err["states"] = max(err["states"], err.pop("qvel"))
+    scale = float(ref[3].abs().max())
+    err["efc_rel"] = err["efc"] / max(scale, 1e-30)
+    return err
+
+
+def reset_counts() -> None:
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout, physics_step
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout
+
+    fused_rollout.launches = fused_policy_rollout.launches = physics_step.launches = 0
+
+
+def read_counts() -> dict:
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout, physics_step
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout
+
+    return {"fused_rollout": fused_rollout.launches, "fused_policy_rollout": fused_policy_rollout.launches,
+            "physics_step": physics_step.launches}
+
+
+def drive(c, warmup: int, timed: int, perturbed) -> tuple[list, dict]:
+    """update_action calls on perturbed states; -> (timed ms, launch counts of the timed run)."""
+    import torch
+
+    for _ in range(warmup):
+        c.current_state = perturbed()
+        c.update_action()
+    torch.cuda.synchronize()
+    times = []
+    reset_counts()
+    for _ in range(timed):
+        c.current_state = perturbed()
+        t0 = time.perf_counter()
+        c.update_action()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()
+    lo, hi = c.task.actuator_ctrlrange[:, 0], c.task.actuator_ctrlrange[:, 1]
+    knots = np.asarray(c.nominal_knots)
+    if not np.all(np.isfinite(c.rewards)) or c.rewards.shape != (c.optimizer_cfg.num_rollouts,):
+        raise RuntimeError(f"rewards not finite or wrong shape: {c.rewards.shape}")
+    if not np.all(np.isfinite(knots)) or np.any(knots < lo - 1e-6) or np.any(knots > hi + 1e-6):
+        raise RuntimeError("nominal knots not finite or outside the control range")
+    return times, counts
+
+
+def leap_path() -> dict:
     import torch
 
     from judo_tpu_torch.controller import make_controller
-    from judo_tpu_torch.physics.fused_rollout import fused_rollout
     from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
     c = make_controller("leap_cube", "mppi", device="cuda", dtype=torch.float32, seed=0)
@@ -106,80 +228,165 @@ def main_path() -> dict:
         s[c.pm.nq :] += 0.02 * rng.standard_normal(c.pm.nv)
         return s
 
-    for _ in range(3):
-        c.current_state = perturbed()
-        c.update_action()
-    fused_rollout.launches = 0
-    times = []
-    for _ in range(20):
-        c.current_state = perturbed()
-        t0 = time.perf_counter()
-        c.update_action()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    launches = fused_rollout.launches
-    if launches != 20:
-        raise RuntimeError(f"kernel launches {launches} != 20 solves")
-    lo, hi = c.task.actuator_ctrlrange[:, 0], c.task.actuator_ctrlrange[:, 1]
-    knots = np.asarray(c.nominal_knots)
-    if not np.all(np.isfinite(c.rewards)) or c.rewards.shape != (B_MAIN,):
-        raise RuntimeError(f"rewards not finite or wrong shape: {c.rewards.shape}")
-    if not np.all(np.isfinite(knots)) or np.any(knots < lo - 1e-6) or np.any(knots > hi + 1e-6):
-        raise RuntimeError("nominal knots not finite or outside the control range")
-    return {
-        "launches": launches, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
-        "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min()),
-    }
+    times, counts = drive(c, 3, 10, perturbed)
+    if counts["fused_rollout"] != 10:
+        raise RuntimeError(f"fused_rollout launches {counts} != 10 solves")
+    return {"counts": counts, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+            "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min())}
 
 
-def solve_gpu_vs_cpu() -> float:
-    """One float64 solve on 16 rollouts with shared noise: cuda vs cpu."""
+def spot_path() -> dict:
     import torch
 
     from judo_tpu_torch.controller import make_controller
-    from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
-    R = 16
-    noise = np.random.default_rng(3).standard_normal((R - 1, 4, 16))
+    c = make_controller("spot_navigate", "mppi", device="cuda", dtype=torch.float32, seed=0)
+    if (c.optimizer_cfg.num_rollouts, c.num_timesteps, c.task.physics_substeps) != (R_SPOT, T_FULL, 2):
+        raise RuntimeError("spot_navigate defaults are not R 24, T 100, 2 substeps")
+    c.task.config.goal_position = np.array([1.5, 0.5, 0.52])
+    rng = np.random.default_rng(3)
+    base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+
+    def perturbed():
+        s = base.copy()
+        s[c.pm.nq :] += 0.02 * rng.standard_normal(c.pm.nv)
+        return s
+
+    times, counts = drive(c, 1, 5, perturbed)
+    if counts["fused_policy_rollout"] != 5:
+        raise RuntimeError(f"fused_policy_rollout launches {counts} != 5 solves")
+    return {"counts": counts, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+            "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min())}
+
+
+def step_path() -> dict:
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import num_constraint_rows, physics_step
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+
+    m = LeapCube(device="cuda", dtype=torch.float32).planning_model
+    qp, qv, ct = leap_inputs(m, B_MAIN, 1, seed=8, dtype=torch.float32, device="cuda")
+    f = torch.zeros((num_constraint_rows(m), B_MAIN), dtype=torch.float32, device="cuda")
+    reset_counts()
+    out = physics_step(m, qp, qv, ct[0], f, 8)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["physics_step"] != 1 or not all(bool(torch.isfinite(x).all()) for x in out):
+        raise RuntimeError(f"single step: launches {counts}, finite {[bool(torch.isfinite(x).all()) for x in out]}")
+    return {"counts": counts}
+
+
+def solve_gpu_vs_cpu(task_name: str, R: int, horizon: float) -> float:
+    """One float64 solve with shared noise: cuda vs cpu, largest error of rewards and knots."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
     out = {}
     for dev in ("cpu", "cuda"):
-        c = make_controller("leap_cube", "mppi", device=dev, dtype=torch.float64, seed=0)
+        c = make_controller(task_name, "mppi", device=dev, dtype=torch.float64, seed=0)
         c.optimizer_cfg.num_rollouts = R
-        c.controller_cfg.horizon = 0.2
+        c.controller_cfg.horizon = horizon
+        noise = np.random.default_rng(3).standard_normal((R - 1, c.optimizer_cfg.num_nodes, c.task.nu))
         opt = c.optimizer
-        opt.sample = lambda p, s, nom, g, opt=opt: opt.sample_from_noise(
+        opt.sample = lambda p, s, nom, g, opt=opt, noise=noise: opt.sample_from_noise(
             p, s, nom, torch.as_tensor(noise, dtype=nom.dtype, device=nom.device)
         )
-        c.current_state = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
+        if task_name == "leap_cube":
+            from judo_tpu_torch.tasks.leap_cube import QPOS_REST
+
+            c.current_state = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
         c.update_action()
         out[dev] = (c.rewards.copy(), np.asarray(c.nominal_knots).copy())
     return float(max(np.abs(out["cpu"][0] - out["cuda"][0]).max(), np.abs(out["cpu"][1] - out["cuda"][1]).max()))
 
 
-def timing() -> tuple[float, float]:
+def event_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, CUDA events, after
+    one warm-up call unless ``warmup`` is False."""
     import torch
 
-    from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
-    from judo_tpu_torch.tasks.leap_cube import LeapCube
-
-    m = LeapCube(device="cuda", dtype=torch.float32).planning_model
-    qp, qv, ct = leap_inputs(m, B_MAIN, T_FULL, seed=4, dtype=torch.float32, device="cuda")
-    f0 = torch.zeros((num_constraint_rows(m), B_MAIN), dtype=torch.float32, device="cuda")
-    fused_rollout(m, qp, qv, ct, f0, 1, 8)
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    reps = 5
     start.record()
     for _ in range(reps):
-        fused_rollout(m, qp, qv, ct, f0, 1, 8)
+        fn()
     end.record()
     torch.cuda.synchronize()
-    kernel_ms = start.elapsed_time(end) / reps
-    start.record()
-    rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8)
-    end.record()
-    torch.cuda.synchronize()
-    return kernel_ms, start.elapsed_time(end)
+    return start.elapsed_time(end) / reps
+
+
+def step_flops(m, iterations: int, cold: bool) -> float:
+    """Floating-point operations of one physics step of one rollout, counted
+    from the step body's loops: every pass over the dense (nefc x nv) J
+    (assembly ~20 per element, masking, b, Jacobi scaling, two passes per
+    operator apply, the final J^T f), the island inverses of M and M + hD,
+    the island mat-vecs of every apply, and the APGD vector updates."""
+    from judo_tpu_torch.physics.fused_rollout import num_constraint_rows, solver_iters
+    from judo_tpu_torch.physics.lane_engine import dof_islands
+
+    ne, nv, it = num_constraint_rows(m), m.nv, solver_iters(m, iterations)
+    applies = it + 1 + (3 if cold else 0)
+    k = [e - s for s, e in dof_islands(m)]
+    return (ne * nv * (4 * applies + 27) + sum(4 * x**3 + 2 * x * x * (applies + 3) for x in k) + 12 * ne * it)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def timing() -> dict:
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import (
+        fused_rollout, num_constraint_rows, physics_step, physics_step_reference, rollout_lanes_reference,
+    )
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout, policy_rollout_lanes_reference
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    f32, res = torch.float32, {}
+    m = LeapCube(device="cuda", dtype=f32).planning_model
+    ne = num_constraint_rows(m)
+    qp, qv, ct = leap_inputs(m, B_MAIN, T_FULL, seed=4, dtype=f32, device="cuda")
+    f0 = torch.zeros((ne, B_MAIN), dtype=f32, device="cuda")
+    k1 = event_ms(lambda: fused_rollout(m, qp, qv, ct, f0, 1, 8), 3)
+    k1_plain = event_ms(lambda: rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8), 1, warmup=False)
+    io = 4 * B_MAIN * (m.nq + m.nv + 2 * ne + T_FULL * (m.nu + m.nq + m.nv + m.nsensordata))
+    res["fused_rollout"] = (k1, k1_plain, *bound_ms(io, B_MAIN * T_FULL * step_flops(m, 8, False)))
+    k3 = event_ms(lambda: physics_step(m, qp, qv, ct[0], f0, 8), 10)
+    k3_plain = event_ms(lambda: physics_step_reference(m, qp, qv, ct[0], f0, 8), 3)
+    io = 4 * B_MAIN * (2 * (m.nq + m.nv + ne) + m.nu + m.nsensordata)
+    res["physics_step"] = (k3, k3_plain, *bound_ms(io, B_MAIN * step_flops(m, 8, True)))
+
+    task = SpotNavigate(device="cuda", dtype=f32)
+    sm, pol = task.planning_model, task.policy
+    args = spot_inputs(task, R_SPOT, T_FULL, seed=9, dtype=f32, device="cuda")
+    k2 = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 2, 8), 2)
+    k2_plain = event_ms(lambda: policy_rollout_lanes_reference(sm, pol, *args, 2, 8), 1, warmup=False)
+    dims = pol.dims
+    mlp = 2 * sum((dims[i] + 1) * dims[i + 1] for i in range(len(dims) - 1))
+    weights = 4 * sum((dims[i] + 1) * dims[i + 1] for i in range(len(dims) - 1))
+    io = weights + 4 * R_SPOT * (sm.nq + sm.nv + 12 + T_FULL * (25 + sm.nq + sm.nv + sm.nsensordata + 12))
+    res["fused_policy_rollout"] = (
+        k2, k2_plain, *bound_ms(io, R_SPOT * T_FULL * (mlp + 2 * step_flops(sm, 8, False)))
+    )
+    # the same launch with no physics substeps: observation, MLP and ctrl only
+    res["k2_policy_only_ms"] = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 0, 8), 2)
+    return res
+
+
+def build_report(log: str) -> list:
+    """ptxas lines naming each kernel's registers and spills."""
+    keep = []
+    for line in log.splitlines():
+        if any(k in line for k in ("Compiling entry function", "registers", "spill", "build seconds")):
+            keep.append(line.strip())
+    return keep
 
 
 def main() -> int:
@@ -196,46 +403,89 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load("cuda")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.build_log("cuda").splitlines():
-        if "registers" in line or "spill" in line or "build seconds" in line:
-            print(f"  {line.strip()}")
+    for line in build_report(_build.build_log("cuda")):
+        print(f"  {line}")
 
-    ok = True
-    errs = {}
+    errs, ok = {}, True
+
+    def check(label: str, value: float, limit: float) -> None:
+        nonlocal ok
+        good = value <= limit
+        ok &= good
+        print(f"{label}: max err {value:.3e} limit {limit:.0e} {'ok' if good else 'FAIL'}", flush=True)
+
     for name in ("f64", "f32"):
-        e = kernel_vs_plain(name)
-        errs[name] = e
+        e = errs[("fused_rollout", name)] = k1_vs_plain(name)
+        lim = LIMITS[name]
+        for k in ("states", "sensors"):
+            check(f"fused_rollout vs plain {name} leap B={B_MAIN} T={T_CHECK} {k}", e[k], lim)
         if name == "f64":
-            checks = [(k, e[k], LIMITS["f64"]) for k in ("states", "sensors", "efc0")]
+            check("fused_rollout vs plain f64 leap efc0", e["efc0"], lim)
         else:
-            checks = [("states", e["states"], LIMITS["f32"]), ("sensors", e["sensors"], LIMITS["f32"]),
-                      ("efc0_rel", e["efc0_rel"], LIMITS["f32_efc0_rel"])]
-        for k, v, lim in checks:
-            good = v <= lim
-            ok &= good
-            print(f"kernel vs plain {name} B={B_MAIN} T={T_CHECK} {k}: max err {v:.3e} limit {lim:.0e} "
-                  f"{'ok' if good else 'FAIL'} (|efc0| max {e['efc0_scale']:.3e})", flush=True)
+            check(f"fused_rollout vs plain f32 leap efc0 relative (|efc0| max {e['efc0_scale']:.3e})",
+                  e["efc0_rel"], LIMITS["f32_efc0_rel"])
+    for name in ("f64", "f32"):
+        for B in (R_SPOT, 80):
+            e = errs[("fused_policy_rollout", name, B)] = k2_vs_plain(name, B)
+            for k in ("states", "sensors", "pout"):
+                check(f"fused_policy_rollout vs plain {name} spot B={B} T={T_POLICY_CHECK} {k}", e[k], LIMITS[name])
+    for name in ("f64", "f32"):
+        for scene in ("leap", "spot"):
+            e = errs[("physics_step", name, scene)] = k3_vs_plain(name, scene)
+            B = B_MAIN if scene == "leap" else R_SPOT
+            for k in ("states", "sensors"):
+                check(f"physics_step vs plain {name} {scene} B={B} {k}", e[k], LIMITS[name])
+            if name == "f64":
+                check(f"physics_step vs plain f64 {scene} efc", e["efc"], LIMITS["f64"])
+            else:
+                check(f"physics_step vs plain f32 {scene} efc relative", e["efc_rel"], LIMITS["f32_efc0_rel"])
     if not ok:
         return 1
 
     card = card_info()
-    mp = main_path()
-    print(f"main path leap_cube mppi R={B_MAIN} f32: p50 {mp['p50_ms']:.2f} ms p95 {mp['p95_ms']:.2f} ms "
-          f"launches {mp['launches']}/20 rewards [{mp['reward_min']:.4f}, {mp['reward_max']:.4f}] on {card}",
-          flush=True)
-    d = solve_gpu_vs_cpu()
-    print(f"solve f64 R=16 T=20 cuda vs cpu (shared noise): max err {d:.3e} limit {LIMITS['solve_f64']:.0e}", flush=True)
-    if not d <= LIMITS["solve_f64"]:
+    leap = leap_path()
+    print(f"path leap_cube mppi R={B_MAIN} T={T_FULL} f32: p50 {leap['p50_ms']:.2f} ms p95 {leap['p95_ms']:.2f} ms "
+          f"launches {leap['counts']} in 10 solves, rewards [{leap['reward_min']:.4f}, {leap['reward_max']:.4f}] "
+          f"on {card}", flush=True)
+    spot = spot_path()
+    print(f"path spot_navigate mppi R={R_SPOT} T={T_FULL}x2 f32: p50 {spot['p50_ms']:.2f} ms p95 "
+          f"{spot['p95_ms']:.2f} ms launches {spot['counts']} in 5 solves, rewards [{spot['reward_min']:.4f}, "
+          f"{spot['reward_max']:.4f}] on {card}", flush=True)
+    step = step_path()
+    print(f"path physics_step leap B={B_MAIN} f32: launches {step['counts']}", flush=True)
+
+    for task_name, R, horizon in (("leap_cube", 16, 0.2), ("spot_navigate", 4, 0.4)):
+        d = solve_gpu_vs_cpu(task_name, R, horizon)
+        check(f"solve f64 {task_name} R={R} horizon {horizon} s cuda vs cpu (shared noise)", d, LIMITS["solve_f64"])
+    if not ok:
         return 1
 
-    kernel_ms, plain_ms = timing()
-    print(f"rollout B={B_MAIN} T={T_FULL} f32: kernel {kernel_ms:.3f} ms, plain PyTorch {plain_ms:.1f} ms on {card}",
+    t = timing()
+    for name, (ms, plain, bnd, by) in ((k, v) for k, v in t.items() if isinstance(v, tuple)):
+        print(f"time {name} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms, bound {bnd:.4f} ms "
+              f"({by}) on {card}", flush=True)
+    print(f"time fused_policy_rollout plain PyTorch per tick: {t['fused_policy_rollout'][1] / T_FULL:.1f} ms",
           flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "fused_rollout", "route": "cuda", "source": "judo_tpu_torch/csrc/fused_rollout.cu",
-        "replaces": "judo_tpu/physics/pallas_step.py:162", "launches": mp["launches"],
-        "max_abs_err": errs["f32"]["states"], "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    print(f"time fused_policy_rollout f32 with 0 physics substeps (observation, MLP, ctrl): "
+          f"{t['k2_policy_only_ms']:.3f} ms on {card}", flush=True)
+
+    launches = {"fused_rollout": leap["counts"]["fused_rollout"],
+                "fused_policy_rollout": spot["counts"]["fused_policy_rollout"],
+                "physics_step": step["counts"]["physics_step"]}
+    rows = [
+        ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
+         errs[("fused_rollout", "f32")]["states"]),
+        ("fused_policy_rollout", "judo_tpu_torch/csrc/fused_policy_rollout.cu", "judo_tpu/physics/pallas_step.py:310",
+         max(errs[("fused_policy_rollout", "f32", B)]["states"] for B in (R_SPOT, 80))),
+        ("physics_step", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:71",
+         max(errs[("physics_step", "f32", s)]["states"] for s in ("leap", "spot"))),
+    ]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+         "max_abs_err": err, "ms": t[name][0], "plain_ms": t[name][1], "bound_ms": t[name][2],
+         "bound_by": t[name][3], "library_ms": None}
+        for name, src, rep, err in rows
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

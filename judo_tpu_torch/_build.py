@@ -2,9 +2,11 @@
 
 The CUDA sources in ``judo_tpu_torch/csrc`` are compiled on first use with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
-interface, loaded with ``ctypes``. The same step body also builds with ``g++``
-into a CPU library (the host twin) that the CPU tests use to check the
-kernel's arithmetic. Builds land in ``build/judo_tpu_torch/`` at the
+interface, loaded with ``ctypes``: each source is compiled to an object by its
+own compiler process, all started together, and the objects are linked into
+one ``libjt.so``. The same step body also builds with ``g++`` into a CPU
+library (the host twins, ``*_host.cpp``) that the CPU tests use to check the
+kernels' arithmetic. Builds land in ``build/judo_tpu_torch/`` at the
 repository root, keyed by a hash of the sources, so a changed source rebuilds
 and an unchanged one loads at once. A failed build raises with the
 compiler's output.
@@ -23,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "judo_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 
 _LOADED: dict = {}
 
@@ -35,7 +37,7 @@ class KernelBuildError(RuntimeError):
 
 def _sources(kind: str) -> list[Path]:
     headers = sorted(CSRC.glob("*.cuh"))
-    main = sorted(CSRC.glob("*.cu")) if kind == "cuda" else [CSRC / "fused_rollout_host.cpp"]
+    main = sorted(CSRC.glob("*.cu")) if kind == "cuda" else sorted(CSRC.glob("*_host.cpp"))
     return main + headers
 
 
@@ -47,18 +49,33 @@ def _nvcc() -> str:
 
 
 def _compile(kind: str, out: Path) -> str:
-    srcs = [str(p) for p in _sources(kind) if p.suffix in (".cu", ".cpp")]
+    """Compile every source of ``kind`` to an object in parallel, then link."""
+    srcs = [p for p in _sources(kind) if p.suffix in (".cu", ".cpp")]
     if kind == "cuda":
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), *srcs]
+        cc, flags = _nvcc(), [*NVCC_FLAGS, "-Xptxas", "-v"]
     else:
-        gxx = shutil.which("g++")
-        if gxx is None:
+        cc = shutil.which("g++")
+        if cc is None:
             raise KernelBuildError("g++ not found")
-        cmd = [gxx, *GXX_FLAGS, "-o", str(out), *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        raise KernelBuildError(f"{kind} build failed (exit {proc.returncode}):\n{log}")
+        flags = GXX_FLAGS
+    objs = [out.parent / f"{out.stem}.{p.stem}.o" for p in srcs]
+    cmds = [[cc, *flags, "-c", "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
+    cmds.append([cc, "-shared", "-o", str(out), *map(str, objs)])
+    log = ""
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=CSRC) for c in cmds[:-1]]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            proc = subprocess.run(cmds[-1], capture_output=True, text=True, cwd=CSRC)
+            results.append((cmds[-1], proc.stdout + proc.stderr, proc.returncode))
+        for c, text, rc in results:
+            log += f"$ {' '.join(c)}\n{text}"
+            if rc != 0:
+                raise KernelBuildError(f"{kind} build failed (exit {rc}):\n{log}")
+    finally:
+        for o in objs:
+            if o.exists():
+                o.unlink()
     return log
 
 
@@ -102,6 +119,12 @@ def load(kind: str) -> ctypes.CDLL:
     for name in ("jt_fused_rollout_f32", "jt_fused_rollout_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12
+        fn.restype = ctypes.c_int
+    lib.jt_policy_scratch_per_lane.argtypes = [ctypes.POINTER(JtSizes), ctypes.c_int]
+    lib.jt_policy_scratch_per_lane.restype = ctypes.c_longlong
+    for name in ("jt_fused_policy_rollout_f32", "jt_fused_policy_rollout_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 14
         fn.restype = ctypes.c_int
     lib.jt_error_string.argtypes = [ctypes.c_int]
     lib.jt_error_string.restype = ctypes.c_char_p

@@ -3,7 +3,8 @@
 
 One ``update_action`` runs ``solve``: resample the nominal spline, draw the
 MPPI samples and clip them, evaluate the candidate splines at the rollout
-times, roll out the physics (one fused kernel on CUDA), score, update the
+times, roll out the physics (one fused kernel on CUDA; for a task with a
+locomotion policy in the loop, the fused policy rollout), score, update the
 nominal, and pack everything the host reads into one mirror vector that
 crosses to the host in one copy.
 """
@@ -19,16 +20,20 @@ import numpy as np
 import torch
 from scipy.interpolate import interp1d
 
-from judo_tpu.config import OverridableConfig
-from judo_tpu.gui import slider
+from judo_tpu_torch.config import OverridableConfig
+from judo_tpu_torch.gui import slider
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
 from judo_tpu_torch.physics.fused_rollout import rollout_lanes
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
+from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
 from judo_tpu_torch.tasks import Task, get_registered_tasks
 from judo_tpu_torch.utils import normalization as norm
 
 PIPELINE_ROADMAP_ITEM = "ROADMAP.md queue 1, 'pipeline_depth > 0 with CUDA streams and pinned memory'"
+# Tasks of the JAX package whose port is still queued (ROADMAP.md queue 1).
+UNPORTED_TASKS = ("spot_base", "spot_box_push", "spot_tire_roll", "spot_tire_upright", "cartpole", "cylinder_push",
+                  "fr3_pick", "leap_cube_down", "caltech_leap_cube")
 
 
 @slider("horizon", 0.1, 10.0, bounded=True)
@@ -58,6 +63,7 @@ class SolverState:
     norm_state: Any
     efc_warm: torch.Tensor  # (R, max(nefc, 1)) previous solve's step-0 forces
     generator: torch.Generator  # sampling stream
+    last_policy_output: torch.Tensor | None = None  # (R, 12) with a policy in the loop
 
 
 class SolveOutputs(NamedTuple):
@@ -93,7 +99,7 @@ def solve(
     norm_state = carry.norm_state
     ctrl_lo = torch.as_tensor(task.actuator_ctrlrange[:, 0], dtype=ctrl.dtype, device=ctrl.device)
     ctrl_hi = torch.as_tensor(task.actuator_ctrlrange[:, 1], dtype=ctrl.dtype, device=ctrl.device)
-    efc_warm = carry.efc_warm
+    efc_warm, last_pout = carry.efc_warm, carry.last_policy_output
     states = sensors = rollout_controls = rewards = candidates = None
     for _ in range(1 if optimizer.stop_cond() else ctrl.max_opt_iters):
         cand_n, opt_state = optimizer.sample(opt_params, opt_state, nominal_n, carry.generator)
@@ -104,16 +110,18 @@ def solve(
         rollout_controls = eval_spline(new_times, candidates, time + rollout_ts, order)
         sim_controls = task.task_to_sim_ctrl(rollout_controls)
         R = sim_controls.shape[0]
-        out = rollout_lanes(
-            pm,
-            current_state[: pm.nq].expand(R, pm.nq),
-            current_state[pm.nq :].expand(R, pm.nv),
-            sim_controls,
-            physics_substeps=task.physics_substeps,
-            iterations=ctrl.controller_cfg.solver_iterations,
-            efc_warm=efc_warm,
-        )
-        states, sensors, efc_warm = out.states, out.sensordata, out.efc0
+        qpos0, qvel0 = current_state[: pm.nq].expand(R, pm.nq), current_state[pm.nq :].expand(R, pm.nv)
+        iterations = ctrl.controller_cfg.solver_iterations
+        if task.uses_locomotion_policy:
+            # forces start cold every solve; efc_warm is carried unchanged
+            out = policy_rollout_lanes(
+                pm, task.policy, qpos0, qvel0, sim_controls, carry.last_policy_output, task.physics_substeps,
+                iterations,
+            )
+            states, sensors, last_pout = out.states, out.sensordata, out.final_policy_output
+        else:
+            out = rollout_lanes(pm, qpos0, qvel0, sim_controls, task.physics_substeps, iterations, efc_warm)
+            states, sensors, efc_warm = out.states, out.sensordata, out.efc0
         rewards = task.reward(states, sensors, rollout_controls, task_params, metadata)
         nominal_n, opt_state = optimizer.update(opt_params, opt_state, cand_n, rewards)
         norm_state = norm.update_normalizer(kind, norm_params, norm_state, candidates)
@@ -130,7 +138,7 @@ def solve(
         traces = torch.zeros((0, 0, 0, 2, 3), dtype=ctrl.dtype, device=ctrl.device)
     new_carry = replace(
         carry, times=new_times, nominal_knots=new_nominal, opt_state=opt_state, norm_state=norm_state,
-        efc_warm=efc_warm,
+        efc_warm=efc_warm, last_policy_output=last_pout,
     )
     mirror = torch.cat([new_times.reshape(-1), new_nominal.reshape(-1), rewards.reshape(-1), traces.reshape(-1)])
     if ctrl.controller_cfg.full_outputs or type(task).post_rollout is not Task.post_rollout:
@@ -229,6 +237,11 @@ class Controller:
         nefc = num_constraint_rows(self.pm)
         return torch.zeros((self.optimizer_cfg.num_rollouts, max(nefc, 1)), dtype=self.dtype, device=self.device)
 
+    def _init_policy_output(self) -> torch.Tensor | None:
+        if not self.task.uses_locomotion_policy:
+            return None
+        return torch.zeros((self.optimizer_cfg.num_rollouts, 12), dtype=self.dtype, device=self.device)
+
     # --- main entry points ---
     def update_action(self) -> None:
         """One planning step; per-stage times land in ``last_plan_timing``."""
@@ -299,6 +312,7 @@ class Controller:
             ),
             efc_warm=self._init_efc_warm(),
             generator=torch.Generator(device=self.device).manual_seed(seed),
+            last_policy_output=self._init_policy_output(),
         )
         self.times = np.asarray(times0)
         self.nominal_knots = warm
@@ -306,25 +320,30 @@ class Controller:
         self.update_spline(self.times, self.nominal_knots)
 
     def _sync_state_shapes(self) -> None:
-        """Re-size the carried warm start after a change of num_rollouts."""
+        """Re-zero the per-rollout carries after a change of num_rollouts."""
         if self._carry.efc_warm.shape[0] != self.optimizer_cfg.num_rollouts:
             self._carry.efc_warm = self._init_efc_warm()
+            self._carry.last_policy_output = self._init_policy_output()
 
 
 def make_controller(
     init_task: str,
     init_optimizer: str,
-    device: Any = "cpu",
+    device: Any = "cuda",
     dtype: torch.dtype = torch.float32,
     seed: int | None = None,
 ) -> Controller:
     """A controller from registry names, on ``device`` in ``dtype``. The
-    per-task overrides it relies on are registered here on every call."""
-    from judo_tpu_torch.controller.overrides import set_leap_controller_overrides
-    from judo_tpu_torch.optimizers.overrides import set_leap_optimizer_overrides
+    default device is the card; without a CUDA GPU this raises, and the
+    caller passes ``device="cpu"``. The per-task overrides it relies on are
+    registered here on every call."""
+    from judo_tpu_torch.controller.overrides import set_default_controller_overrides
+    from judo_tpu_torch.optimizers.overrides import set_default_optimizer_overrides
 
-    set_leap_controller_overrides()
-    set_leap_optimizer_overrides("leap_cube")
+    set_default_controller_overrides()
+    set_default_optimizer_overrides()
+    if init_task in UNPORTED_TASKS:
+        raise NotImplementedError(f"task {init_task} is not ported yet (ROADMAP.md queue 1)")
     task_entry = get_registered_tasks().get(init_task)
     opt_entry = get_registered_optimizers().get(init_optimizer)
     if task_entry is None:

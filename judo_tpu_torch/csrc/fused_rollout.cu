@@ -36,13 +36,30 @@ __global__ void __launch_bounds__(32) fused_rollout_kernel(JtSizes s, const int*
   jt::rollout_lane<T>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, b);
 }
 
+// One physics step with a cold probe (replaces pallas_step.py::
+// _build_pallas_step): the same body at T = 1, sizes.cold = 1. Kept as its
+// own kernel so that its launches are counted apart from the rollout's.
+template <typename T>
+__global__ void __launch_bounds__(32) physics_step_kernel(JtSizes s, const int* mi, const T* mf, const T* qpos,
+                                                          const T* qvel, const T* ctrl, const T* f, T* oq, T* ov,
+                                                          T* os, T* of, T* scratch) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= s.B) return;
+  jt::rollout_lane<T>(s, mi, mf, qpos, qvel, ctrl, f, oq, ov, os, of, scratch, b);
+}
+
 template <typename T>
 static int launch(const JtSizes* s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
                   const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, void* stream) {
   const int threads = 32;
   const int blocks = (s->B + threads - 1) / threads;
-  fused_rollout_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq,
-                                                                       ov, os, of0, scratch);
+  if (s->cold) {
+    physics_step_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq,
+                                                                        ov, os, of0, scratch);
+  } else {
+    fused_rollout_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq,
+                                                                         ov, os, of0, scratch);
+  }
   return (int)cudaGetLastError();
 }
 

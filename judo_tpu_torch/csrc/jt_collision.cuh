@@ -1,5 +1,6 @@
-// Narrowphase of one rollout: box-box (4 slots) and capsule-box (2 slots).
-// Scalar twins of judo_tpu_torch/physics/lane_collision.py; the one-hot
+// Narrowphase of one rollout: plane-sphere (1 slot), plane-capsule (2),
+// plane-box (4), capsule-box (2) and box-box (4). Scalar twins of
+// judo_tpu_torch/physics/lane_collision.py; the one-hot
 // selections of the lanes code become index choices with the same tie rules
 // (first index wins among equal keys).
 #pragma once
@@ -29,6 +30,69 @@ template <typename T> HD int first_absmax3(const T* v) {
   const T a0 = tabs(v[0]), a1 = tabs(v[1]), a2 = tabs(v[2]);
   const T mx = tmax(tmax(a0, a1), a2);
   return a0 == mx ? 0 : (a1 == mx ? 1 : 2);
+}
+
+// Plane (x1, m1; normal = m1's z column) against a sphere of radius s2[0].
+template <typename T>
+HD void plane_sphere(const T* x1, const T* m1, const T* x2, const T* s2, T* dist, T* pos, T* nrm) {
+  T n[3], rel[3];
+  mcol(m1, 2, n);
+  for (int k = 0; k < 3; ++k) rel[k] = x2[k] - x1[k];
+  dist[0] = dot3(rel, n) - s2[0];
+  for (int k = 0; k < 3; ++k) {
+    pos[k] = x2[k] - n[k] * (s2[0] + T(0.5) * dist[0]);
+    nrm[k] = n[k];
+  }
+}
+
+// Plane against a capsule (radius s2[0], half length s2[1]): its two segment
+// ends, the -axis end first.
+template <typename T>
+HD void plane_capsule(const T* x1, const T* m1, const T* x2, const T* m2, const T* s2, T* dist, T* pos, T* nrm) {
+  T n[3], axis[3];
+  mcol(m1, 2, n);
+  mcol(m2, 2, axis);
+  for (int s = 0; s < 2; ++s) {
+    const T sgn = s == 0 ? T(-1) : T(1);
+    T cend[3], rel[3];
+    for (int k = 0; k < 3; ++k) {
+      cend[k] = x2[k] + (sgn * s2[1]) * axis[k];
+      rel[k] = cend[k] - x1[k];
+    }
+    dist[s] = dot3(rel, n) - s2[0];
+    for (int k = 0; k < 3; ++k) {
+      pos[3 * s + k] = cend[k] - n[k] * (s2[0] + T(0.5) * dist[s]);
+      nrm[3 * s + k] = n[k];
+    }
+  }
+}
+
+// Plane against a box: the four deepest of its eight corners (corner k has
+// signs (bit2, bit1, bit0) = (x, y, z)), ties to the lowest corner index.
+template <typename T>
+HD void plane_box(const T* x1, const T* m1, const T* x2, const T* m2, const T* s2, T* dist, T* pos, T* nrm) {
+  T n[3], cols[3][3], corner[8][3], cd[8];
+  mcol(m1, 2, n);
+  for (int i = 0; i < 3; ++i) mcol(m2, i, cols[i]);
+  for (int c = 0; c < 8; ++c) {
+    const T sg[3] = {T((c >> 2) & 1 ? 1 : -1), T((c >> 1) & 1 ? 1 : -1), T(c & 1 ? 1 : -1)};
+    T rel[3];
+    for (int k = 0; k < 3; ++k) {
+      T off = T(0);
+      for (int i = 0; i < 3; ++i) off = off + (sg[i] * s2[i]) * cols[i][k];
+      corner[c][k] = x2[k] + off;
+      rel[k] = corner[c][k] - x1[k];
+    }
+    cd[c] = dot3(rel, n);
+  }
+  for (int s = 0; s < 4; ++s) {
+    const int c = rank_select(cd, 8, s);
+    dist[s] = cd[c];
+    for (int k = 0; k < 3; ++k) {
+      pos[3 * s + k] = corner[c][k] - (T(0.5) * cd[c]) * n[k];
+      nrm[3 * s + k] = n[k];
+    }
+  }
 }
 
 template <typename T>

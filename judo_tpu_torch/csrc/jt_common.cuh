@@ -23,8 +23,11 @@
 
 extern "C" {
 // Sizes of one launch; mirrored by fused_rollout.py:_Sizes.
+// pyramidal: 4 facet rows per contact and the orthant projection (else the
+// elliptic cone's 3 rows); cold: start each launch's probe with 3 warm-up
+// |A| applies instead of reading the carried one.
 struct JtSizes {
-  int B, T, substeps, iterations;
+  int B, T, substeps, iterations, pyramidal, cold;
   int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, nsensordata;
   int nlim, npair, ncon, nefc, nisl;
   int nu_, ns_, nefc_;
@@ -34,7 +37,7 @@ struct JtSizes {
 namespace jt {
 
 enum { FREE = 0, BALL = 1, SLIDE = 2, HINGE = 3 };
-enum { PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1 };
+enum { PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1, PAIR_PLANE_SPHERE = 2, PAIR_PLANE_CAPSULE = 3, PAIR_PLANE_BOX = 4 };
 enum { S_JOINTPOS = 9, S_JOINTVEL = 10, S_FRAMEPOS = 26, S_FRAMEQUAT = 27, S_FRAMEXAXIS = 28,
        S_FRAMEZAXIS = 30 };
 enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
@@ -52,7 +55,9 @@ enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
 // sensor I: type objtype objid adr dim reftype refid
 // limit row I: qadr dadr     F: side range margin solimp5 k b invweight
 // pair  I: kind g1 g2 slot0 nslot   F: size1_3 size2_3
-// slot  I: body1 body2              F: mu k b solimp5 margin invweight
+// slot  I: body1 body2              F: mu k b solimp5 margin diag
+//       (diag: the rows' invweight; max(2 invweight mu^2 (1 + mu^2), 1e-15)
+//       for pyramidal facets)
 // island I: start size
 // then body_dof_mask (nbody x nv ints); scalars start with the globals
 // timestep gravity3 impratio.

@@ -87,10 +87,12 @@ HD void narrowphase(const Ctx<T>& c) {
     lload(w, c.S.gxmat + 9 * pi[1], 9, m1);
     lload(w, c.S.gxpos + 3 * pi[2], 3, x2);
     lload(w, c.S.gxmat + 9 * pi[2], 9, m2);
-    if (pi[0] == PAIR_BOX_BOX) {
-      box_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm);
-    } else {
-      capsule_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm);
+    switch (pi[0]) {
+      case PAIR_BOX_BOX: box_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm); break;
+      case PAIR_CAPSULE_BOX: capsule_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm); break;
+      case PAIR_PLANE_SPHERE: plane_sphere(x1, m1, x2, pf + 3, d, pos, nrm); break;
+      case PAIR_PLANE_CAPSULE: plane_capsule(x1, m1, x2, m2, pf + 3, d, pos, nrm); break;
+      default: plane_box(x1, m1, x2, m2, pf + 3, d, pos, nrm); break;
     }
     for (int s = 0; s < pi[4]; ++s) {
       const int slot = pi[3] + s;
@@ -145,23 +147,39 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
     const T imp = impedance(sF + 3, pos);
     const T active = dist < sF[8] ? T(1) : T(0);
     const T reg_n = (T(1) - imp) / tmax(imp, T(kMinimp)) * sF[9];
+    // rows along n, t1, t2; a pyramidal cone turns them into the facets
+    // n + mu t1, n - mu t1, n + mu t2, n - mu t2 (contact-major), an elliptic
+    // one keeps them grouped as [normals | t1 | t2]
+    const bool pyr = c.s.pyramidal;
+    const int nrow = pyr ? 4 : 3;
+    T w1[3][3], w2[3][3], vel[4] = {T(0), T(0), T(0), T(0)};
     for (int g = 0; g < 3; ++g) {
-      const int r = nlim + g * nc + ci;
-      T w1[3], w2[3];
-      cross3(arm1, dirs[g], w1);
-      cross3(arm2, dirs[g], w2);
-      T vel = T(0);
-      for (int v = 0; v < nv; ++v) {
-        const int64_t cd = c.S.cdof + 6 * v;
+      cross3(arm1, dirs[g], w1[g]);
+      cross3(arm2, dirs[g], w2[g]);
+    }
+    const T mu = sF[0];
+    for (int v = 0; v < nv; ++v) {
+      const int64_t cd = c.S.cdof + 6 * v;
+      T jg[3];
+      for (int g = 0; g < 3; ++g) {
         const T lin = w[cd + 3] * dirs[g][0] + w[cd + 4] * dirs[g][1] + w[cd + 5] * dirs[g][2];
-        const T ang1 = w[cd] * w1[0] + w[cd + 1] * w1[1] + w[cd + 2] * w1[2];
-        const T ang2 = w[cd] * w2[0] + w[cd + 1] * w2[1] + w[cd + 2] * w2[2];
-        const T jv = T(mask2[v]) * (lin + ang2) - T(mask1[v]) * (lin + ang1);
-        w[c.S.J + r * nv + v] = jv;
-        vel = vel + jv * qvel[v];
+        const T ang1 = w[cd] * w1[g][0] + w[cd + 1] * w1[g][1] + w[cd + 2] * w1[g][2];
+        const T ang2 = w[cd] * w2[g][0] + w[cd + 1] * w2[g][1] + w[cd + 2] * w2[g][2];
+        jg[g] = T(mask2[v]) * (lin + ang2) - T(mask1[v]) * (lin + ang1);
       }
-      w[c.S.aref + r] = g == 0 ? -sF[2] * vel - sF[1] * imp * pos : -sF[2] * vel;
-      w[c.S.reg + r] = g == 0 ? reg_n : reg_n / impratio;
+      const T jf[4] = {pyr ? jg[0] + mu * jg[1] : jg[0], pyr ? jg[0] - mu * jg[1] : jg[1],
+                       pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
+      for (int f = 0; f < nrow; ++f) {
+        const int r = pyr ? nlim + 4 * ci + f : nlim + f * nc + ci;
+        w[c.S.J + r * nv + v] = jf[f];
+        vel[f] = vel[f] + jf[f] * qvel[v];
+      }
+    }
+    for (int f = 0; f < nrow; ++f) {
+      const int r = pyr ? nlim + 4 * ci + f : nlim + f * nc + ci;
+      const bool normal = pyr || f == 0;
+      w[c.S.aref + r] = normal ? -sF[2] * vel[f] - sF[1] * imp * pos : -sF[2] * vel[f];
+      w[c.S.reg + r] = normal ? reg_n : reg_n / impratio;
       w[c.S.act + r] = active;
       w[c.S.diag + r] = sF[9];
     }
@@ -179,11 +197,12 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   }
 }
 
-// Projection onto the orthant (limit rows) x second-order cones (contacts).
+// Projection onto the orthant (limit rows, pyramidal facets) x second-order
+// cones (elliptic contacts).
 template <typename T>
 HD void project(const Ctx<T>& c, int64_t z) {
   const Lane<T> w = c.w;
-  const int nlim = c.s.nlim, nc = c.s.ncon;
+  const int nlim = c.s.pyramidal ? c.s.nefc : c.s.nlim, nc = c.s.pyramidal ? 0 : c.s.ncon;
   for (int r = 0; r < nlim; ++r) w[z + r] = tmax(w[z + r], T(0));
   for (int ci = 0; ci < nc; ++ci) {
     const T mu = w[c.S.muc + ci];
@@ -254,13 +273,23 @@ HD void dual_solve(const Ctx<T>& c) {
     w[c.S.reg + r] = w[c.S.reg + r] * is * is;
     w[c.S.bvec + r] = w[c.S.bvec + r] * is;
   }
-  for (int ci = 0; ci < nc; ++ci) {
+  for (int ci = 0; ci < (c.s.pyramidal ? 0 : nc); ++ci) {
     const T mu = c.mf[c.L.fc + CF * ci];
     w[c.S.muc + ci] = mu * w[c.S.invs + nlim + ci] / tmax(w[c.S.invs + nlim + nc + ci], T(kMinval));
   }
-  // Collatz-Wielandt bound from one |A| apply on the carried probe
-  const T nin = lane_norm_inv(w, c.S.cwv, ne);
-  for (int r = 0; r < ne; ++r) w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7));
+  // Collatz-Wielandt bound from one |A| apply on the carried probe, or on a
+  // cold one after three normalised warm-up applies from ones
+  if (c.s.cold) {
+    for (int r = 0; r < ne; ++r) w[c.S.vv + r] = T(1);
+    for (int k = 0; k < 3; ++k) {
+      apply_op(c, c.S.vv, c.S.bv, true);
+      const T n = lane_norm_inv(w, c.S.bv, ne);
+      for (int r = 0; r < ne; ++r) w[c.S.vv + r] = w[c.S.bv + r] * n;
+    }
+  } else {
+    const T nin = lane_norm_inv(w, c.S.cwv, ne);
+    for (int r = 0; r < ne; ++r) w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7));
+  }
   apply_op(c, c.S.vv, c.S.bv, true);
   T L = T(-kBig);
   for (int r = 0; r < ne; ++r) L = tmax(L, w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)));
@@ -361,11 +390,9 @@ HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
   }
 }
 
-// The whole T-step rollout of rollout b (the body of the CUDA kernel, and of
-// the host twin's loop over b). Arrays are batch-last; see fused_rollout.py.
+// The context of rollout b: model, sizes and its slice of the scratch.
 template <typename T>
-HD void rollout_lane(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0,
-                     const T* ctrl, const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, int b) {
+HD Ctx<T> lane_ctx(const JtSizes& s, const int* mi, const T* mf, T* scratch, int b) {
   Ctx<T> c;
   c.s = s;
   c.L = make_layout(s);
@@ -373,23 +400,47 @@ HD void rollout_lane(const JtSizes& s, const int* mi, const T* mf, const T* qpos
   c.mi = mi;
   c.mf = mf;
   c.w = Lane<T>{scratch + b, s.B};
+  return c;
+}
+
+// Load rollout b's start state, warm-start forces (zeros when f0 is null)
+// and a probe of ones.
+template <typename T>
+HD void lane_init(const Ctx<T>& c, const T* qpos0, const T* qvel0, const T* f0, int b) {
   const Lane<T> w = c.w;
-  const int64_t B = s.B;
-  for (int k = 0; k < s.nq; ++k) w[c.S.qpos + k] = qpos0[k * B + b];
-  for (int k = 0; k < s.nv; ++k) w[c.S.qvel + k] = qvel0[k * B + b];
-  for (int r = 0; r < s.nefc; ++r) {
-    w[c.S.fw + r] = f0[r * B + b];
+  const int64_t B = c.s.B;
+  for (int k = 0; k < c.s.nq; ++k) w[c.S.qpos + k] = qpos0[k * B + b];
+  for (int k = 0; k < c.s.nv; ++k) w[c.S.qvel + k] = qvel0[k * B + b];
+  for (int r = 0; r < c.s.nefc; ++r) {
+    w[c.S.fw + r] = f0 ? f0[r * B + b] : T(0);
     w[c.S.cwv + r] = T(1);
   }
+}
+
+// Write rollout b's qpos and qvel as step t of the (T, n, B) outputs.
+template <typename T>
+HD void lane_store_state(const Ctx<T>& c, T* oq, T* ov, int t, int b) {
+  const int64_t B = c.s.B;
+  for (int k = 0; k < c.s.nq; ++k) oq[((int64_t)t * c.s.nq + k) * B + b] = c.w[c.S.qpos + k];
+  for (int k = 0; k < c.s.nv; ++k) ov[((int64_t)t * c.s.nv + k) * B + b] = c.w[c.S.qvel + k];
+}
+
+// The whole T-step rollout of rollout b (the body of the CUDA kernel, and of
+// the host twin's loop over b). Arrays are batch-last; see fused_rollout.py.
+template <typename T>
+HD void rollout_lane(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0,
+                     const T* ctrl, const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, int b) {
+  const Ctx<T> c = lane_ctx(s, mi, mf, scratch, b);
+  const int64_t B = s.B;
+  lane_init(c, qpos0, qvel0, f0, b);
   for (int t = 0; t < s.T; ++t) {
     const Lane<const T> ctrl_t{ctrl + (int64_t)t * s.nu_ * B + b, B};
     const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
     for (int k = 0; k < s.ns_; ++k) sens_t[k] = T(0);
     for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl_t, sens_t);
-    for (int k = 0; k < s.nq; ++k) oq[((int64_t)t * s.nq + k) * B + b] = w[c.S.qpos + k];
-    for (int k = 0; k < s.nv; ++k) ov[((int64_t)t * s.nv + k) * B + b] = w[c.S.qvel + k];
+    lane_store_state(c, oq, ov, t, b);
     if (t == 0) {
-      for (int r = 0; r < s.nefc_; ++r) of0[r * B + b] = r < s.nefc ? w[c.S.fw + r] : T(0);
+      for (int r = 0; r < s.nefc_; ++r) of0[r * B + b] = r < s.nefc ? c.w[c.S.fw + r] : T(0);
     }
   }
 }

@@ -17,8 +17,8 @@ from typing import Any, Generic, TypeVar
 
 import torch
 
-from judo_tpu.config import OverridableConfig
-from judo_tpu.gui import slider
+from judo_tpu_torch.config import OverridableConfig
+from judo_tpu_torch.gui import slider
 
 
 @slider("num_nodes", 3, 12, 1)

@@ -7,7 +7,7 @@ from typing import Any
 
 import torch
 
-from judo_tpu.gui import slider
+from judo_tpu_torch.gui import slider
 from judo_tpu_torch.optimizers.base import Optimizer, OptimizerConfig
 
 

@@ -1,4 +1,5 @@
-"""The fused T-step rollout (counterpart of ``judo_tpu/physics/pallas_step.py``).
+"""The fused T-step rollout and the single step (counterpart of
+``judo_tpu/physics/pallas_step.py``).
 
 ``fused_rollout`` is the wrapper of the hand-written CUDA kernel
 (``csrc/fused_rollout.cu``, the port of the Pallas kernel
@@ -6,7 +7,9 @@
 kernel or raises; for CPU tensors it runs ``rollout_lanes_reference``, the
 plain PyTorch version: ``step_l`` in a Python loop over T with the same carry
 semantics. ``rollout_lanes`` is the public entry with the JAX package's
-batch-first layout.
+batch-first layout. ``physics_step`` wraps the single-step kernel (the port of
+``pallas_step.py::_build_pallas_step``): one step with a cold probe, whose
+plain version is ``step_l(..., cw_v=None)``.
 """
 
 from __future__ import annotations
@@ -22,11 +25,25 @@ from judo_tpu_torch.physics.lane_engine import dof_islands
 from judo_tpu_torch.physics.lane_step import implicit_damping_np, kb_from_solref_np, step_l
 from judo_tpu_torch.physics.model import (
     GEOM_BOX,
+    GEOM_CAPSULE,
+    GEOM_PLANE,
+    GEOM_SPHERE,
+    SLOTS_PER_PAIR,
     PhysicsModel,
+    contact_rows_per,
     lane_supported,
     limit_joints,
     num_constraint_rows,
 )
+
+# Pair kind codes of csrc/jt_common.cuh.
+PAIR_KINDS = {
+    (GEOM_BOX, GEOM_BOX): 0,
+    (GEOM_CAPSULE, GEOM_BOX): 1,
+    (GEOM_PLANE, GEOM_SPHERE): 2,
+    (GEOM_PLANE, GEOM_CAPSULE): 3,
+    (GEOM_PLANE, GEOM_BOX): 4,
+}
 
 
 class JtSizes(ctypes.Structure):
@@ -35,7 +52,7 @@ class JtSizes(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_int)
         for name in (
-            "B", "T", "substeps", "iterations", "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite",
+            "B", "T", "substeps", "iterations", "pyramidal", "cold", "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite",
             "nsensor", "nsensordata", "nlim", "npair", "ncon", "nefc", "nisl", "nu_", "ns_", "nefc_",
         )
     ]
@@ -151,17 +168,19 @@ def pack_model(m: PhysicsModel) -> dict:
     npair = ncon = 0
     if m.contact_enabled:
         for sig, pairs in pair_groups(m):
-            nslot = 4 if sig == (GEOM_BOX, GEOM_BOX) else 2
+            nslot = SLOTS_PER_PAIR[sig]
             for g1, g2 in pairs:
-                I += [0 if nslot == 4 else 1, g1, g2, ncon, nslot]
+                I += [PAIR_KINDS[sig], g1, g2, ncon, nslot]
                 floats_pair.append([*size[g1], *size[g2]])
                 mu, sr, si, mg = pair_params_np(m, g1, g2)
                 k, bb = kb_from_solref_np(sr, si, ts)
                 b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
-                invw = max(bi[b1, 0] + bi[b2, 0], 1e-15)
+                diag = max(bi[b1, 0] + bi[b2, 0], 1e-15)
+                if m.cone_pyramidal:
+                    diag = max(2.0 * diag * mu**2 * (1.0 + mu**2), 1e-15)
                 for _ in range(nslot):
                     slot_i += [b1, b2]
-                    floats_slot.append([mu, k, bb, *si, mg, invw])
+                    floats_slot.append([mu, k, bb, *si, mg, diag])
                 npair += 1
                 ncon += nslot
     I += slot_i
@@ -174,7 +193,7 @@ def pack_model(m: PhysicsModel) -> dict:
         for rec in block:
             F += [float(x) for x in rec]
     nefc = num_constraint_rows(m)
-    assert nefc == len(floats_lim) + 3 * ncon, (nefc, len(floats_lim), ncon)
+    assert nefc == len(floats_lim) + contact_rows_per(m) * ncon, (nefc, len(floats_lim), ncon)
     packed = {
         "mi": np.asarray(I, np.int32),
         "mf": np.asarray(F, np.float64),
@@ -188,8 +207,11 @@ def pack_model(m: PhysicsModel) -> dict:
     return packed
 
 
-def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | None) -> JtSizes:
-    return JtSizes(B=B, T=T, substeps=substeps, iterations=solver_iters(m, iterations), **pack_model(m)["counts"])
+def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | None, cold: bool = False) -> JtSizes:
+    return JtSizes(
+        B=B, T=T, substeps=substeps, iterations=solver_iters(m, iterations), pyramidal=int(m.cone_pyramidal),
+        cold=int(cold), **pack_model(m)["counts"],
+    )
 
 
 def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> int:
@@ -215,19 +237,25 @@ def _check_inputs(m: PhysicsModel, qpos, qvel, ctrl, f0):
         raise ValueError(f"unsupported dtype {qpos.dtype}")
 
 
-def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream):
-    """Run the library's fused rollout on contiguous tensors; returns the outputs."""
-    B, T = qpos.shape[-1], ctrl.shape[0]
-    sizes = _sizes(m, B, T, substeps, iterations)
-    per_lane = _check_layout(lib, m, sizes)
-    dev, dtype = qpos.device, qpos.dtype
+def model_tensors(m: PhysicsModel, dev, dtype) -> tuple:
+    """The packed model on ``dev`` in ``dtype`` (made once per device and dtype)."""
     key = ("packed_dev", str(dev), dtype)
     mt = m._packed.get(key)
     if mt is None:
         pk = pack_model(m)
         mt = (torch.as_tensor(pk["mi"]).to(dev), torch.as_tensor(pk["mf"], dtype=dtype).to(dev))
         m._packed[key] = mt
-    mi, mf = mt
+    return mt
+
+
+def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False):
+    """Run the library's fused rollout (or, with ``cold``, the single-step
+    kernel) on contiguous tensors; returns the outputs."""
+    B, T = qpos.shape[-1], ctrl.shape[0]
+    sizes = _sizes(m, B, T, substeps, iterations, cold)
+    per_lane = _check_layout(lib, m, sizes)
+    dev, dtype = qpos.device, qpos.dtype
+    mi, mf = model_tensors(m, dev, dtype)
     c = pack_model(m)["counts"]
     ins = [x.contiguous() for x in (qpos, qvel, ctrl, f0)]
     oq = torch.empty((T, m.nq, B), dtype=dtype, device=dev)
@@ -260,11 +288,7 @@ def fused_rollout(
     _check_inputs(m, qpos, qvel, ctrl, f0)
     if qpos.device.type == "cpu":
         return rollout_lanes_reference(m, qpos, qvel, ctrl, f0, substeps, iterations)
-    if qpos.device.type != "cuda":
-        raise ValueError(f"fused_rollout runs on cuda or cpu tensors, not {qpos.device}")
-    from judo_tpu_torch import _build
-
-    lib = _build.load("cuda")
+    lib = _cuda_lib(qpos, "fused_rollout")
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         out = _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream)
@@ -273,6 +297,61 @@ def fused_rollout(
 
 
 fused_rollout.launches = 0
+
+
+def _cuda_lib(x: torch.Tensor, name: str):
+    """The CUDA library for a tensor on the card; raises for other devices."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
+    from judo_tpu_torch import _build
+
+    return _build.load("cuda")
+
+
+def physics_step(
+    m: PhysicsModel,
+    qpos: torch.Tensor,  # (nq, B)
+    qvel: torch.Tensor,  # (nv, B)
+    ctrl: torch.Tensor,  # (nu_, B)
+    f: torch.Tensor,  # (nefc_, B) warm-start forces
+    iterations: int | None = None,
+):
+    """One physics step with a cold probe, batch-last:
+    -> ((nq,B), (nv,B), (ns_,B), (nefc_,B)) post-step state, sensors, forces.
+
+    CUDA tensors launch the single-step kernel (``physics_step.launches``
+    counts each launch); CPU tensors run the plain version
+    ``step_l(..., cw_v=None)``.
+    """
+    _check_inputs(m, qpos, qvel, ctrl[None], f)
+    if qpos.device.type == "cpu":
+        return physics_step_reference(m, qpos, qvel, ctrl, f, iterations)
+    lib = _cuda_lib(qpos, "physics_step")
+    with torch.cuda.device(qpos.device):
+        stream = torch.cuda.current_stream(qpos.device).cuda_stream
+        oq, ov, os_, of = _launch(lib, m, qpos, qvel, ctrl[None], f, 1, iterations, stream, cold=True)
+    physics_step.launches += 1
+    return oq[0], ov[0], os_[0], of
+
+
+physics_step.launches = 0
+
+
+def physics_step_reference(m: PhysicsModel, qpos, qvel, ctrl, f, iterations: int | None = None):
+    """The plain version of the single-step kernel: ``step_l`` with a cold probe."""
+    nefc = num_constraint_rows(m)
+    out = step_l(m, qpos, qvel, ctrl[: m.nu], f[:nefc] if nefc else None, iterations, cw_v=None)
+    sens = out.sensordata if m.nsensordata else qpos.new_zeros((1, qpos.shape[-1]))
+    return out.qpos, out.qvel, sens, out.efc_force if nefc else torch.zeros_like(f)
+
+
+def physics_step_host_twin(m: PhysicsModel, qpos, qvel, ctrl, f, iterations: int | None = None):
+    """The single-step kernel's own arithmetic built with g++, on the CPU. For tests."""
+    _check_inputs(m, qpos, qvel, ctrl[None], f)
+    from judo_tpu_torch import _build
+
+    oq, ov, os_, of = _launch(_build.load("host"), m, qpos, qvel, ctrl[None], f, 1, iterations, None, cold=True)
+    return oq[0], ov[0], os_[0], of
 
 
 def fused_rollout_host_twin(

@@ -2,9 +2,10 @@
 ``judo_tpu/physics/lane_collision.py``), pair-stacked: every quantity is
 (P, ..., B) for the P candidate pairs of one pair type.
 
-Ported pair types: box-box (4 slots) and capsule-box (2 slots), the two that
-the leap planning model uses. Dynamic selections (separating axis, deepest
-points) are rank one-hots over comparison masks, as in the JAX package.
+Ported pair types: plane-sphere (1 slot), plane-capsule (2), plane-box (4),
+capsule-box (2) and box-box (4), the ones the leap and Spot planning models
+use. Dynamic selections (separating axis, deepest points) are rank one-hots
+over comparison masks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from judo_tpu_torch.physics.model import GEOM_BOX, GEOM_CAPSULE, PhysicsModel
+from judo_tpu_torch.physics.model import GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, PhysicsModel
 
 _BIG = 1e10
 
@@ -92,6 +93,48 @@ def _blend3v(oh3, items, dtype):
     out = (0.0, 0.0, 0.0)
     for i in range(3):
         out = _add(out, _scale(oh3[i].to(dtype), items[i]))
+    return out
+
+
+def _k_plane_sphere(x1, m1, s1, x2, m2, s2):
+    """1-slot plane-sphere (lane_collision._k_plane_sphere), pair-stacked."""
+    n = m1[:, :, 2]
+    r = s2[:, 0:1]
+    d = torch.sum((x2 - x1) * n, dim=1) - r
+    return [(d, x2 - n * (r + 0.5 * d)[:, None], n)]
+
+
+def _k_plane_capsule(x1, m1, s1, x2, m2, s2):
+    """2-slot plane-capsule (lane_collision._k_plane_capsule): the two
+    segment ends, in that order."""
+    n = m1[:, :, 2]
+    axis = m2[:, :, 2]
+    r = s2[:, 0:1]
+    out = []
+    for sgn in (-1.0, 1.0):
+        c = x2 + sgn * s2[:, 1:2, None] * axis
+        d = torch.sum((c - x1) * n, dim=1) - r
+        out.append((d, c - n * (r + 0.5 * d)[:, None], n))
+    return out
+
+
+def _k_plane_box(x1, m1, s1, x2, m2, s2):
+    """4-slot plane-box (lane_collision._k_plane_box): the four deepest of the
+    eight corners, ties to the lowest corner index. Corner k has signs
+    (bit2, bit1, bit0) = (sx, sy, sz)."""
+    n = m1[:, :, 2]
+    dtype = x1.dtype
+    io = torch.arange(8, device=x1.device).reshape(8, 1, 1, 1)
+    sgn = [((io // 4) % 2 * 2 - 1).to(dtype), ((io // 2) % 2 * 2 - 1).to(dtype), (io % 2 * 2 - 1).to(dtype)]
+    corners = x2[None] + sum(sgn[i] * s2[None, :, i : i + 1, None] * m2[None, :, :, i] for i in range(3))
+    cd = torch.sum((corners - x1[None]) * n[None], dim=2)  # (8, P, B)
+    ranks = _rank_stacked(cd)
+    out = []
+    for s in range(4):
+        w = (ranks == s).to(dtype)
+        d = torch.sum(w * cd, 0)
+        p = torch.sum(w[:, :, None] * corners, 0)
+        out.append((d, p - 0.5 * d[:, None] * n, n))
     return out
 
 
@@ -300,6 +343,9 @@ def _k_box_box(x1, m1, s1, x2, m2, s2):
 
 
 _L_KERNELS = {
+    (GEOM_PLANE, GEOM_SPHERE): _k_plane_sphere,
+    (GEOM_PLANE, GEOM_CAPSULE): _k_plane_capsule,
+    (GEOM_PLANE, GEOM_BOX): _k_plane_box,
     (GEOM_CAPSULE, GEOM_BOX): _k_capsule_box,
     (GEOM_BOX, GEOM_BOX): _k_box_box,
 }

@@ -2,9 +2,11 @@
 lanes step in plain PyTorch (counterpart of ``judo_tpu/physics/lane_step.py``).
 
 ``step_l`` advances a batch of rollouts one physics step, batch-last. Row
-order matches the JAX package: joint limits, then the elliptic contact rows
-grouped as [normals | t1 | t2]. Only the Collatz-Wielandt ("cw") Lipschitz
-bound is ported; contractions over constraint rows are plain sums.
+order matches the JAX package: joint limits, then the contact rows. Elliptic
+cones give them grouped as [normals | t1 | t2]; pyramidal cones give four
+facet rows per contact, contact-major [n+mu t1, n-mu t1, n+mu t2, n-mu t2].
+Only the Collatz-Wielandt ("cw") Lipschitz bound is ported; contractions over
+constraint rows are plain sums.
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ class LaneRows(NamedTuple):
 def assemble_constraints_l(
     m: PhysicsModel, com: le.LaneCom, contacts: LaneContacts | None, qpos: torch.Tensor, qvel: torch.Tensor
 ) -> LaneRows | None:
-    """Joint-limit and elliptic contact rows, batch-last."""
+    """Joint-limit and contact rows (elliptic or pyramidal), batch-last."""
     B = qvel.shape[-1]
     dev, dtype = qvel.device, qvel.dtype
     ts = float(m.np64("timestep"))
@@ -157,15 +159,33 @@ def assemble_constraints_l(
         def vel(row):
             return torch.sum(row * qvel[None], dim=1)
 
-        reg_n = (1.0 - imp) / torch.clamp(imp, min=_MINIMP) * col(inv_w)
-        reg_t = reg_n / float(m.np64("impratio"))
-        c_parts = [
-            torch.cat([row_n, row_t1, row_t2], dim=0),
-            torch.cat([-b_c * vel(row_n) - k_c * imp * pos, -b_c * vel(row_t1), -b_c * vel(row_t2)], dim=0),
-            torch.cat([reg_n, reg_t, reg_t], dim=0),
-            torch.cat([active, active, active], dim=0),
-            col(np.tile(inv_w, 3)).expand(3 * C, B),
-        ]
+        if m.cone_pyramidal:
+            mu = col(contacts.friction)[:, :, None]
+            diag_np = np.maximum(2.0 * inv_w * contacts.friction**2 * (1.0 + contacts.friction**2), _MINVAL)
+            reg = (1.0 - imp) / torch.clamp(imp, min=_MINIMP) * col(diag_np)
+            facets = torch.stack([row_n + mu * row_t1, row_n - mu * row_t1, row_n + mu * row_t2, row_n - mu * row_t2], 1)
+            J_c = facets.reshape(4 * C, m.nv, B)
+
+            def rep4(a):
+                return torch.repeat_interleave(a, 4, dim=0)
+
+            c_parts = [
+                J_c,
+                -rep4(b_c * torch.ones_like(pos)) * vel(J_c) - rep4(k_c * imp * pos),
+                rep4(reg),
+                rep4(active),
+                rep4(col(diag_np) * torch.ones_like(active)),
+            ]
+        else:
+            reg_n = (1.0 - imp) / torch.clamp(imp, min=_MINIMP) * col(inv_w)
+            reg_t = reg_n / float(m.np64("impratio"))
+            c_parts = [
+                torch.cat([row_n, row_t1, row_t2], dim=0),
+                torch.cat([-b_c * vel(row_n) - k_c * imp * pos, -b_c * vel(row_t1), -b_c * vel(row_t2)], dim=0),
+                torch.cat([reg_n, reg_t, reg_t], dim=0),
+                torch.cat([active, active, active], dim=0),
+                col(np.tile(inv_w, 3)).expand(3 * C, B),
+            ]
         parts = c_parts if parts is None else [torch.cat([a, c], dim=0) for a, c in zip(parts, c_parts)]
     if parts is None:
         return None
@@ -382,7 +402,7 @@ def step_l(
         reg = torch.where(rows.active > 0, rows.reg, torch.ones_like(rows.reg))
         b = j_vec(J, qacc_smooth) - aref
         iters = max(m.solver_iterations if solver_iterations is None else solver_iterations, 8)
-        mus = [float(v) for v in contacts.friction] if contacts is not None else None
+        mus = [float(v) for v in contacts.friction] if contacts is not None and not m.cone_pyramidal else None
         diag = torch.where(rows.active > 0, rows.diag, torch.ones_like(rows.diag))
         f, cw_v_out = solve_dual_qp_l(
             J, minv, reg, b, iters, f_warm, ncon_start=num_noncontact_rows(m), mus=mus, diag=diag, cw_v=cw_v

@@ -51,7 +51,10 @@ _CONE_PYRAMIDAL = 0
 # Pair types with a narrowphase kernel in this port, and their slot counts
 # (the subset of judo_tpu/physics/lane_collision.py:_SLOTS_PER_PAIR ported so
 # far; the others are listed in ROADMAP.md).
-_L_KERNELS = {
+SLOTS_PER_PAIR = {
+    (GEOM_PLANE, GEOM_SPHERE): 1,
+    (GEOM_PLANE, GEOM_CAPSULE): 2,
+    (GEOM_PLANE, GEOM_BOX): 4,
     (GEOM_CAPSULE, GEOM_BOX): 2,
     (GEOM_BOX, GEOM_BOX): 4,
 }
@@ -298,11 +301,9 @@ def lane_supported(m: PhysicsModel) -> None:
     missing = []
     pairs = sorted({(m.geom_type[g1], m.geom_type[g2]) for g1, g2 in m.collision_pairs})
     if m.contact_enabled:
-        bad = [p for p in pairs if p not in _L_KERNELS]
+        bad = [p for p in pairs if p not in SLOTS_PER_PAIR]
         if bad:
-            missing.append(f"collision pair types {bad} (ported: {sorted(_L_KERNELS)})")
-        if m.cone_pyramidal and pairs:
-            missing.append("pyramidal friction cones (ported: elliptic)")
+            missing.append(f"collision pair types {bad} (ported: {sorted(SLOTS_PER_PAIR)})")
     if m.neq:
         missing.append(f"equality constraints of types {sorted(set(m.eq_type))}")
     sens = sorted({t for t in m.sensor_type if t == SENSOR_DISTANCE})

@@ -1,9 +1,10 @@
-"""Task registry (the port holds leap_cube so far)."""
+"""Task registry (the port holds leap_cube and spot_navigate so far)."""
 
 from typing import Type
 
 from judo_tpu_torch.tasks.base import Task, TaskConfig
 from judo_tpu_torch.tasks.leap_cube import LeapCube, LeapCubeConfig
+from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate, SpotNavigateConfig
 
 _registered_tasks: dict[str, tuple[Type[Task], Type[TaskConfig]]] = {}
 
@@ -17,5 +18,6 @@ def get_registered_tasks() -> dict[str, tuple[Type[Task], Type[TaskConfig]]]:
 
 
 register_task(LeapCube.name, LeapCube)
+register_task(SpotNavigate.name, SpotNavigate)
 
-__all__ = ["LeapCube", "LeapCubeConfig", "Task", "TaskConfig", "get_registered_tasks", "register_task"]
+__all__ = ["LeapCube", "LeapCubeConfig", "SpotNavigate", "SpotNavigateConfig", "Task", "TaskConfig", "get_registered_tasks", "register_task"]

@@ -6,6 +6,10 @@ host-side state the controller plans from (``qpos``, ``qvel``, ``time``).
 Where ``mujoco`` is installed the model is lowered from the task's MJCF with
 ``put_model``; elsewhere it is read from a committed snapshot of the same
 lowering (``judo_tpu_torch/models/*.npz``).
+
+Tasks live on the card unless the caller asks for the CPU: ``device``
+defaults to ``"cuda"``, and ``resolve_device`` refuses it, naming the way
+out, where no CUDA GPU exists.
 """
 
 from __future__ import annotations
@@ -29,6 +33,17 @@ class TaskConfig:
 
 
 ConfigT = TypeVar("ConfigT", bound=TaskConfig)
+
+
+def resolve_device(device: Any) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a CUDA GPU and torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch version on the CPU"
+        )
+    return dev
 
 
 def config_to_params(cfg: Any, dtype: torch.dtype, device: Any) -> dict[str, Any]:
@@ -59,11 +74,11 @@ def trace_sensors_from_mujoco(mj_model) -> list[int]:
     return ids
 
 
-def model_from_mujoco(xml_path: str, solver_iterations: int, collision_pair_filter=None) -> tuple[PhysicsModel, dict]:
-    """(float64 planning model, extras) lowered from an MJCF file with mujoco."""
+def model_from_mujoco(xml: str, solver_iterations: int, collision_pair_filter=None) -> tuple[PhysicsModel, dict]:
+    """(float64 planning model, extras) lowered with mujoco from an MJCF string."""
     import mujoco
 
-    mj = mujoco.MjSpec.from_file(str(xml_path)).compile()
+    mj = mujoco.MjSpec.from_string(xml).compile()
     m = put_model(mj, dtype=np.float64, solver_iterations=solver_iterations, collision_pair_filter=collision_pair_filter)
     trace = trace_sensors_from_mujoco(mj)
     extras = {
@@ -82,9 +97,9 @@ class Task(Generic[ConfigT]):
     config_t: type[ConfigT]
     planning_solver_iterations: int = 25
 
-    def __init__(self, device: Any = "cpu", dtype: torch.dtype = torch.float32) -> None:
+    def __init__(self, device: Any = "cuda", dtype: torch.dtype = torch.float32) -> None:
+        self.device = resolve_device(device)
         self.config = self.config_t()
-        self.device = torch.device(device)
         self.dtype = dtype
         m64, extras = self._model_or_snapshot()
         self.extras = extras
@@ -132,6 +147,11 @@ class Task(Generic[ConfigT]):
     @property
     def physics_substeps(self) -> int:
         return 1
+
+    @property
+    def uses_locomotion_policy(self) -> bool:
+        """True where a policy in the rollout maps commands to ctrl."""
+        return False
 
     @property
     def dt(self) -> float:

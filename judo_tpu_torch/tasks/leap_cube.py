@@ -8,8 +8,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from judo_tpu.gui import slider
-from judo_tpu.models.leap import leap_cube_xml_path
+from judo_tpu_torch.gui import slider
+from judo_tpu_torch.models.leap import leap_cube_xml
 from judo_tpu_torch.ops.math import quat_diff_so3
 from judo_tpu_torch.physics.model import PhysicsModel
 from judo_tpu_torch.tasks.base import Task, TaskConfig, model_from_mujoco
@@ -56,7 +56,7 @@ class LeapCube(Task[LeapCubeConfig]):
     name: str = "leap_cube"
     config_t: type[LeapCubeConfig] = LeapCubeConfig
 
-    def __init__(self, device: Any = "cpu", dtype: torch.dtype = torch.float32) -> None:
+    def __init__(self, device: Any = "cuda", dtype: torch.dtype = torch.float32) -> None:
         super().__init__(device=device, dtype=dtype)
         self.goal_pos = np.array([0.0, 0.03, 0.1])
         self.qpos_home = np.asarray(self.extras["qpos_home"], np.float64)
@@ -65,7 +65,7 @@ class LeapCube(Task[LeapCubeConfig]):
 
     @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
-        m, extras = model_from_mujoco(leap_cube_xml_path(), cls.planning_solver_iterations)
+        m, extras = model_from_mujoco(leap_cube_xml(), cls.planning_solver_iterations)
         return m, {**extras, "qpos_home": QPOS_HOME, "reset_command": QPOS_HOME[7:].copy()}
 
     def reward(self, states, sensors, controls, params, system_metadata=None) -> torch.Tensor:

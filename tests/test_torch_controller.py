@@ -25,7 +25,7 @@ R, N, NU = 8, 4, 16
 
 
 def _port(noise, state):
-    c = make_controller("leap_cube", "mppi", dtype=torch.float64, seed=0)
+    c = make_controller("leap_cube", "mppi", device="cpu", dtype=torch.float64, seed=0)
     assert c.optimizer_cfg.sigma == 0.2 and c.optimizer_cfg.noise_ramp == 4.0  # overrides registered
     assert c.spline_order == "cubic" and c.max_num_traces == 1
     c.optimizer_cfg.num_rollouts = R
@@ -65,7 +65,7 @@ def test_update_action_matches_jax_controller():
 
 
 def test_pipeline_depth_raises_with_roadmap_item():
-    c = make_controller("leap_cube", "mppi", dtype=torch.float64, seed=0)
+    c = make_controller("leap_cube", "mppi", device="cpu", dtype=torch.float64, seed=0)
     c.controller_cfg.pipeline_depth = 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.update_action()

@@ -2,10 +2,12 @@
 
 The port's ``put_model`` and ``physics_model_from_numpy`` (applied to a JAX
 ``PhysicsModel``) must give the same static fields and bit-identical arrays as
-``judo_tpu.physics.put_model``; the committed mujoco-free snapshot must equal
-a fresh export; and the package must import and roll out without JAX.
+``judo_tpu.physics.put_model``; the committed mujoco-free snapshots must equal
+a fresh export; and the package must import, build its controllers and roll
+out with neither JAX nor the JAX package importable.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,10 +19,12 @@ import pytest
 
 from judo_tpu.models.leap import leap_cube_xml_path
 from judo_tpu.physics import put_model as jax_put_model
+from judo_tpu.tasks.spot.spot_navigate import SpotNavigate as JaxSpotNavigate
 from judo_tpu.physics.solver import num_constraint_rows as jax_nefc
 from judo_tpu.physics.solver import num_noncontact_rows as jax_noncontact
 from judo_tpu_torch.physics import model as tm
 from judo_tpu_torch.tasks.leap_cube import LeapCube
+from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
 
 from .test_physics.test_parity import CARTPOLE, SPHERE_PLANE
 
@@ -80,38 +84,71 @@ def test_mujoco_codes_match():
     assert int(mujoco.mjtCone.mjCONE_PYRAMIDAL) == tm._CONE_PYRAMIDAL
 
 
+TWO_SPHERES = """
+<mujoco>
+  <worldbody>
+    <body pos="0 0 0.3"><freejoint/><geom type="sphere" size="0.1"/></body>
+    <body pos="0 0 0.6"><freejoint/><geom type="sphere" size="0.1"/></body>
+  </worldbody>
+</mujoco>
+"""
+
+
 def test_lane_supported_raises_naming_pairs():
-    pm = tm.put_model(mujoco.MjModel.from_xml_string(SPHERE_PLANE), dtype=np.float64)
-    with pytest.raises(NotImplementedError, match=r"collision pair types \[\(0, 2\)\]"):
+    pm = tm.put_model(mujoco.MjModel.from_xml_string(TWO_SPHERES), dtype=np.float64)
+    with pytest.raises(NotImplementedError, match=r"collision pair types \[\(2, 2\)\]"):
         tm.lane_supported(pm)
     tm.lane_supported(tm.put_model(_leap_mj(), dtype=np.float64))
+    sphere_plane = tm.put_model(mujoco.MjModel.from_xml_string(SPHERE_PLANE), dtype=np.float64)
+    assert sphere_plane.cone_pyramidal  # plane pairs and the pyramidal cone are ported
+    tm.lane_supported(sphere_plane)
 
 
-def test_committed_snapshot_is_current():
-    """The snapshot the GPU machine plans from equals a fresh export."""
-    fresh = LeapCube.snapshot()
-    with np.load(LeapCube.snapshot_path(), allow_pickle=False) as z:
+@pytest.mark.parametrize("task", [LeapCube, SpotNavigate])
+def test_committed_snapshot_is_current(task):
+    """The snapshot the GPU machine plans from equals a fresh export and the
+    JAX package's planning model."""
+    fresh = task.snapshot()
+    with np.load(task.snapshot_path(), allow_pickle=False) as z:
         assert sorted(z.files) == sorted(fresh)
         for k in z.files:
             np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
-    m, _ = tm.load_snapshot(LeapCube.snapshot_path(), dtype=np.float32)
-    _assert_same_model(m, jax_put_model(_leap_mj(), dtype=jnp.float32, solver_iterations=25))
+    m, _ = tm.load_snapshot(task.snapshot_path(), dtype=np.float32)
+    if task is LeapCube:
+        jm = jax_put_model(_leap_mj(), dtype=jnp.float32, solver_iterations=25)
+    else:
+        jm = JaxSpotNavigate().planning_model
+    _assert_same_model(m, jm)
 
 
 def test_imports_and_rolls_out_without_jax():
+    """With jax, flax, mujoco and the JAX package all unimportable: every module
+    of the port imports, both controllers build on the CPU, and a leap
+    rollout and a Spot policy rollout run."""
     code = (
         "import sys\n"
-        "for k in ('jax', 'flax', 'jaxlib', 'mujoco'): sys.modules[k] = None\n"
-        "import numpy as np, torch\n"
+        "for k in ('jax', 'flax', 'jaxlib', 'mujoco', 'judo_tpu'): sys.modules[k] = None\n"
+        "import importlib, pkgutil, numpy as np, torch, judo_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(judo_tpu_torch.__path__, 'judo_tpu_torch.')]\n"
+        "for name in mods: importlib.import_module(name)\n"
+        "from judo_tpu_torch.controller import make_controller\n"
         "from judo_tpu_torch.physics.fused_rollout import rollout_lanes\n"
-        "from judo_tpu_torch.tasks.leap_cube import LeapCube, QPOS_REST\n"
-        "task = LeapCube(dtype=torch.float64)\n"
-        "m = task.planning_model\n"
+        "from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes\n"
+        "from judo_tpu_torch.tasks.leap_cube import QPOS_REST\n"
+        "leap = make_controller('leap_cube', 'mppi', device='cpu', dtype=torch.float64)\n"
+        "spot = make_controller('spot_navigate', 'mppi', device='cpu', dtype=torch.float64)\n"
+        "m = leap.task.planning_model\n"
         "qp = torch.tensor(np.tile(QPOS_REST, (2, 1)))\n"
         "out = rollout_lanes(m, qp, torch.zeros(2, m.nv, dtype=torch.float64),\n"
         "                    torch.tensor(np.tile(QPOS_REST[7:], (2, 2, 1))))\n"
         "assert out.states.shape == (2, 2, m.nq + m.nv) and bool(torch.isfinite(out.states).all())\n"
-        "assert not any(k.startswith(('jax', 'flax')) and sys.modules[k] is not None for k in sys.modules)\n"
+        "s = spot.task\n"
+        "sp = policy_rollout_lanes(s.planning_model, s.policy, torch.tensor(np.tile(s.qpos, (2, 1))),\n"
+        "    torch.zeros(2, s.nv, dtype=torch.float64), s.task_to_sim_ctrl(torch.zeros(2, 1, 3, dtype=torch.float64)),\n"
+        "    torch.zeros(2, 12, dtype=torch.float64))\n"
+        "assert sp.states.shape == (2, 1, 51) and bool(torch.isfinite(sp.states).all())\n"
+        "assert len(mods) > 25\n"
+        "assert not any(k.startswith(('jax', 'flax', 'judo_tpu.')) and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, timeout=300)
@@ -120,7 +157,7 @@ def test_imports_and_rolls_out_without_jax():
 
 
 def test_port_sources_do_not_import_jax():
-    for path in (REPO / "judo_tpu_torch").rglob("*.py"):
-        text = path.read_text()
-        assert "import jax" not in text and "from jax" not in text and "flax" not in text, path
+    pattern = re.compile(r"^\s*(from|import) (jax|judo_tpu|flax)([ .]|$)", re.M)
+    for path in [*(REPO / "judo_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
     assert "judo_tpu." not in (REPO / "chip_smoke.py").read_text().replace("judo_tpu_torch", "")
