@@ -1,0 +1,274 @@
+"""Profiling runs of the port's kernels on a CUDA GPU, beside chip_smoke.py.
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 chip_profile.py stages   # per-stage split of K1 (leap) and K2 (Spot)
+    python3 chip_profile.py unroll   # the kernels against copies with loops unrolled or not
+    python3 chip_profile.py horizon  # full-horizon kernel vs plain, and whole solve sequences
+
+stages and unroll copy judo_tpu_torch/csrc into build/profile/<variant>/,
+patch the copy (the committed sources stay as they are), build it with nvcc
+and run it at the main paths' shapes in float32: leap B 320, T 100; Spot
+R 24, T 100 policy ticks x 2 physics steps.
+
+- stages: lane 0 of each warp reads clock64 between the stages of a physics
+  step (after a __syncwarp, so a stage ends when its slowest lane does) and
+  around each policy tick, and adds the cycles to per-stage counters; the
+  split is each stage's share of the summed cycles.
+- unroll: times the checkout's kernels against two copies, one with the
+  MLP's inner loop left rolled and one with the inner loops of the J passes
+  (J^T x over rows, J y over dofs) unrolled by 8, in the order base, A, B, B,
+  A, base within one process.
+- horizon: K1 (leap, B 64) and K2 (Spot, R 24) against their plain versions
+  over the full T 100, float64 and float32; then chip_smoke.py's two solve
+  sequences (warm-up and timed solves on the same perturbed states) in
+  float64 and float32, printing the last solve's rewards. It uses only what
+  chip_smoke.py has had since the Spot path was ported, so a copy of this
+  file runs it in an older checkout too, for a comparison of two trees.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+STAGES = ["smooth dynamics (lane 0)", "M inverse + qacc_smooth", "sensors (lane 0)", "narrowphase", "assembly",
+          "solve prep (scaling + CW bound)", "APGD iterations", "J^T f + qacc", "implicit damping + qvel",
+          "position update (lane 0)", "policy tick (obs + MLP + ctrl)"]
+
+CLOCK = '''#ifdef __CUDACC__
+static __device__ unsigned long long jt_stage_cycles[16];
+#endif
+struct StageClock {
+  long long t = 0;
+  HD void start() {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+    t = clock64();
+#endif
+  }
+  HD void mark(int k) {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+    const long long n = clock64();
+    if ((threadIdx.x & 31) == 0) atomicAdd(&jt_stage_cycles[k], (unsigned long long)(n - t));
+    t = n;
+#endif
+  }
+};
+// Scalar helpers with one overload set'''
+
+READ = '''
+extern "C" int jt_stage_{name}(unsigned long long* out, int reset) {{
+  if (reset) {{
+    unsigned long long z[16] = {{0}};
+    return (int)cudaMemcpyToSymbol(jt::jt_stage_cycles, z, sizeof(z));
+  }}
+  return (int)cudaMemcpyFromSymbol(out, jt::jt_stage_cycles, 16 * sizeof(unsigned long long));
+}}
+'''
+
+MLP_LOOP = "      for (int i = 0; i < ni; ++i) acc = acc + W[(int64_t)i * no + r] * w[in + i];"
+MLP_PRAGMA = "#ifdef __CUDA_ARCH__\n#pragma unroll 8\n#endif\n"
+
+# variant -> [(file, old, new)]; every old text must occur in the checkout
+PATCHES = {
+    "stages": [
+        ("jt_common.cuh", "// Scalar helpers with one overload set", CLOCK),
+        ("jt_step.cuh", "HD void dual_solve(const Ctx<T>& c) {\n",
+         "HD void dual_solve(const Ctx<T>& c, StageClock& clk) {\n"),
+        ("jt_step.cuh", "  const T step = T(1) / tmax(L, T(kMinval));\n",
+         "  const T step = T(1) / tmax(L, T(kMinval));\n  clk.mark(5);\n"),
+        ("jt_step.cuh", "  const T h = c.mf[0];\n  Warp::single([&] {\n    kinematics(c, qpos);\n",
+         "  const T h = c.mf[0];\n  StageClock clk;\n  clk.start();\n  Warp::single([&] {\n    kinematics(c, qpos);\n"),
+        ("jt_step.cuh", "    smooth_force(c, qpos, qvel, ctrl);\n  });\n",
+         "    smooth_force(c, qpos, qvel, ctrl);\n  });\n  clk.mark(0);\n"),
+        ("jt_step.cuh", "  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n",
+         "  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n  clk.mark(1);\n"),
+        ("jt_step.cuh", "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n",
+         "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n  clk.mark(2);\n"),
+        ("jt_step.cuh", "    narrowphase(c);\n    assemble(c, qpos, qvel);\n    dual_solve(c);\n",
+         "    narrowphase(c);\n    clk.mark(3);\n    assemble(c, qpos, qvel);\n    clk.mark(4);\n"
+         "    dual_solve(c, clk);\n    clk.mark(6);\n"),
+        ("jt_step.cuh", "  // implicit-in-velocity damping", "  clk.mark(7);\n  // implicit-in-velocity damping"),
+        ("jt_step.cuh", "  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });\n",
+         "  clk.mark(8);\n  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });\n  clk.mark(9);\n"),
+        ("jt_policy.cuh", "    policy_tick(c, p, P, cmd_t);\n",
+         "    StageClock clk;\n    clk.start();\n    policy_tick(c, p, P, cmd_t);\n    clk.mark(10);\n"),
+    ],
+    "mlp rolled": [("jt_policy.cuh", MLP_PRAGMA + MLP_LOOP, MLP_LOOP)],
+    "J passes unrolled": [
+        ("jt_step.cuh", "    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];",
+         "#pragma unroll 8\n    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];"),
+        ("jt_step.cuh", "    for (int v = 0; v < nv; ++v) {\n      const T j = J[r * ld + v];",
+         "#pragma unroll 8\n    for (int v = 0; v < nv; ++v) {\n      const T j = J[r * ld + v];"),
+    ],
+}
+
+
+def use_sources(variant: str | None) -> None:
+    """Point the kernel build at the checkout's csrc (None) or at a patched
+    copy of it, and drop the loaded library so that the next launch loads
+    that build."""
+    from judo_tpu_torch import _build
+
+    csrc = ROOT / "judo_tpu_torch" / "csrc"
+    if variant is None:
+        _build.CSRC, _build.BUILD_DIR = csrc, ROOT / "build" / "judo_tpu_torch"
+    else:
+        dst = ROOT / "build" / "profile" / variant.replace(" ", "_")
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(csrc, dst)
+        for name, old, new in PATCHES[variant]:
+            text = (dst / name).read_text()
+            if old not in text:
+                raise RuntimeError(f"patch {variant!r}: {old[:50]!r} not found in {name}")
+            (dst / name).write_text(text.replace(old, new, 1))
+        if variant == "stages":
+            for name, tag in (("fused_rollout.cu", "rollout"), ("fused_policy_rollout.cu", "policy")):
+                (dst / name).write_text((dst / name).read_text() + READ.format(name=tag))
+        _build.CSRC, _build.BUILD_DIR = dst, dst.parent / f"{dst.name}_build"
+    _build._LOADED.clear()
+    _build.load("cuda")
+
+
+def main_shapes():
+    """Launchers of K1 (leap) and K2 (Spot, and Spot with no physics substeps)."""
+    import torch
+
+    import chip_smoke as cs
+    from judo_tpu_torch.physics import fused_rollout as fr
+    from judo_tpu_torch.physics import policy_rollout as pr
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    f32 = torch.float32
+    m = LeapCube(device="cuda", dtype=f32).planning_model
+    qp, qv, ct = cs.leap_inputs(m, cs.B_MAIN, cs.T_FULL, seed=4, dtype=f32, device="cuda")
+    f0 = torch.zeros((fr.num_constraint_rows(m), cs.B_MAIN), dtype=f32, device="cuda")
+    task = SpotNavigate(device="cuda", dtype=f32)
+    args = cs.spot_inputs(task, cs.R_SPOT, cs.T_FULL, seed=9, dtype=f32, device="cuda")
+    return {
+        "K1": lambda: fr.fused_rollout(m, qp, qv, ct, f0, 1, 8),
+        "K2": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8),
+        "K2 policy only": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 0, 8),
+    }
+
+
+def stages(card: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from judo_tpu_torch import _build
+
+    use_sources("stages")
+    lib = _build.load("cuda")
+    run = main_shapes()
+    buf = (ctypes.c_ulonglong * 16)()
+    for kernel, tag, shape in (("K1", "rollout", "leap B 320 T 100"), ("K2", "policy", "spot R 24 T 100 x 2")):
+        read = getattr(lib, f"jt_stage_{tag}")
+        run[kernel]()
+        torch.cuda.synchronize()
+        if read(buf, 1) != 0:
+            raise RuntimeError("resetting the stage counters failed")
+        run[kernel]()
+        torch.cuda.synchronize()
+        if read(buf, 0) != 0:
+            raise RuntimeError("reading the stage counters failed")
+        total = sum(buf[: len(STAGES)])
+        print(f"stage split {kernel} {shape} f32 (clock64 marks in a patched copy) on {card}:")
+        for k, name in enumerate(STAGES):
+            if buf[k]:
+                print(f"  {name}: {100 * buf[k] / total:.1f} % ({buf[k]} cycles summed over lane 0 of all warps)")
+        print(f"  {kernel} with the marks: {cs.event_ms(run[kernel], 3):.3f} ms", flush=True)
+
+
+def unroll(card: str) -> None:
+    import chip_smoke as cs
+
+    reps = {"K1": 10, "K2": 5, "K2 policy only": 5}
+    for variant in (None, "mlp rolled", "J passes unrolled", "J passes unrolled", "mlp rolled", None):
+        use_sources(variant)
+        run = main_shapes()
+        times = ", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in run.items())
+        print(f"unroll {variant or 'checkout'}: {times} f32 on {card}", flush=True)
+
+
+def horizon(card: str) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from judo_tpu_torch.controller import make_controller
+    from judo_tpu_torch.physics import fused_rollout as fr
+    from judo_tpu_torch.physics import policy_rollout as pr
+    from judo_tpu_torch.tasks.leap_cube import QPOS_REST, LeapCube
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    def report(label, ref, out, names):
+        errs = " ".join(f"{n} {float((a - b).abs().max()):.3e}" for n, a, b in zip(names, ref, out) if n)
+        drift = int(((ref[0] - out[0]).abs().amax(dim=(0, 1)) > 1e-2).sum())
+        print(f"horizon {label}: {errs}; rollouts whose qpos drifts past 1e-2: {drift} on {card}", flush=True)
+
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        task = SpotNavigate(device="cuda", dtype=dtype)
+        args = cs.spot_inputs(task, cs.R_SPOT, cs.T_FULL, seed=9, dtype=dtype, device="cuda")
+        ref = pr.policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
+        out = pr.fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8)
+        report(f"K2 vs plain {name} spot R={cs.R_SPOT} T={cs.T_FULL}", ref, out, ("qpos", "qvel", None, "pout"))
+        m = LeapCube(device="cuda", dtype=dtype).planning_model
+        qp, qv, ct = cs.leap_inputs(m, 64, cs.T_FULL, seed=4, dtype=dtype, device="cuda")
+        f0 = torch.zeros((fr.num_constraint_rows(m), 64), dtype=dtype, device="cuda")
+        ref = fr.rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8)
+        out = fr.fused_rollout(m, qp, qv, ct, f0, 1, 8)
+        report(f"K1 vs plain {name} leap B=64 T={cs.T_FULL}", ref, out, ("qpos", "qvel"))
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        for task_name, R, warmup, timed, seed in (("spot_navigate", cs.R_SPOT, 1, 5, 3),
+                                                  ("leap_cube", cs.B_MAIN, 3, 10, 2)):
+            c = make_controller(task_name, "mppi", device="cuda", dtype=dtype, seed=0)
+            c.optimizer_cfg.num_rollouts = R
+            if task_name == "spot_navigate":
+                c.task.config.goal_position = np.array([1.5, 0.5, 0.52])
+                base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+            else:
+                base = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
+            rng = np.random.default_rng(seed)
+
+            def perturbed(c=c, base=base, rng=rng, leap=task_name == "leap_cube"):
+                s = base.copy()
+                if leap:
+                    s[:3] += 5e-4 * rng.standard_normal(3)
+                s[c.pm.nq :] += 0.02 * rng.standard_normal(c.pm.nv)
+                return s
+
+            cs.drive(c, warmup, timed, perturbed)
+            r = np.sort(c.rewards)
+            print(f"horizon solves {task_name} R={R} {name} ({warmup} + {timed}): last rewards min {r[0]:.6f} "
+                  f"second {r[1]:.6f} median {float(np.median(r)):.6f} max {r[-1]:.6f} on {card}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    modes = {"stages": stages, "unroll": unroll, "horizon": horizon}
+    if len(sys.argv) != 2 or sys.argv[1] not in modes:
+        print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this run needs a CUDA GPU", file=sys.stderr)
+        return 1
+    modes[sys.argv[1]](cs.card_info())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

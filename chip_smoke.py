@@ -9,10 +9,12 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases (any failure exits non-zero before the final line):
 1. card: name and power limit from nvidia-smi; a CUDA device is required;
 2. build: compile the CUDA kernels from judo_tpu_torch/csrc (one nvcc per
-   source, in parallel); print each kernel's registers and spills;
+   source, in parallel); print each kernel's registers and spills, and its
+   dynamic shared memory per block (one rollout's scratch) with the blocks
+   that stay resident on one SM, float32 and float64;
 3. kernel vs plain version, float64 and float32:
    - fused_rollout (K1) against rollout_lanes_reference on the leap model,
-     320 rollouts, 5 steps, warm-start forces carried;
+     320 and 33 rollouts, 5 steps, warm-start forces carried;
    - fused_policy_rollout (K2) against policy_rollout_lanes_reference on
      spot_navigate, 24 and 80 rollouts, 3 policy ticks, a random nonzero
      starting policy output;
@@ -102,7 +104,7 @@ def max_errs(names, ref, out) -> dict:
     return {n: float((a - b).abs().max()) for n, a, b in zip(names, ref, out)}
 
 
-def k1_vs_plain(dtype_name: str) -> dict:
+def k1_vs_plain(dtype_name: str, B: int = B_MAIN) -> dict:
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
@@ -110,8 +112,8 @@ def k1_vs_plain(dtype_name: str) -> dict:
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
     m = LeapCube(device="cuda", dtype=dtype).planning_model
-    qp, qv, ct = leap_inputs(m, B_MAIN, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
-    zeros = torch.zeros((num_constraint_rows(m), B_MAIN), dtype=dtype, device="cuda")
+    qp, qv, ct = leap_inputs(m, B, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
+    zeros = torch.zeros((num_constraint_rows(m), B), dtype=dtype, device="cuda")
     # onset forces from one plain step: the carried warm start of a real solve
     f0 = rollout_lanes_reference(m, qp, qv, ct[:1], zeros, 1, 8)[3]
     ref = rollout_lanes_reference(m, qp, qv, ct[1:], f0, 1, 8)
@@ -354,11 +356,11 @@ def timing() -> dict:
     ne = num_constraint_rows(m)
     qp, qv, ct = leap_inputs(m, B_MAIN, T_FULL, seed=4, dtype=f32, device="cuda")
     f0 = torch.zeros((ne, B_MAIN), dtype=f32, device="cuda")
-    k1 = event_ms(lambda: fused_rollout(m, qp, qv, ct, f0, 1, 8), 3)
+    k1 = event_ms(lambda: fused_rollout(m, qp, qv, ct, f0, 1, 8), 10)
     k1_plain = event_ms(lambda: rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8), 1, warmup=False)
     io = 4 * B_MAIN * (m.nq + m.nv + 2 * ne + T_FULL * (m.nu + m.nq + m.nv + m.nsensordata))
     res["fused_rollout"] = (k1, k1_plain, *bound_ms(io, B_MAIN * T_FULL * step_flops(m, 8, False)))
-    k3 = event_ms(lambda: physics_step(m, qp, qv, ct[0], f0, 8), 10)
+    k3 = event_ms(lambda: physics_step(m, qp, qv, ct[0], f0, 8), 50)
     k3_plain = event_ms(lambda: physics_step_reference(m, qp, qv, ct[0], f0, 8), 3)
     io = 4 * B_MAIN * (2 * (m.nq + m.nv + ne) + m.nu + m.nsensordata)
     res["physics_step"] = (k3, k3_plain, *bound_ms(io, B_MAIN * step_flops(m, 8, True)))
@@ -366,7 +368,7 @@ def timing() -> dict:
     task = SpotNavigate(device="cuda", dtype=f32)
     sm, pol = task.planning_model, task.policy
     args = spot_inputs(task, R_SPOT, T_FULL, seed=9, dtype=f32, device="cuda")
-    k2 = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 2, 8), 2)
+    k2 = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 2, 8), 5)
     k2_plain = event_ms(lambda: policy_rollout_lanes_reference(sm, pol, *args, 2, 8), 1, warmup=False)
     dims = pol.dims
     mlp = 2 * sum((dims[i] + 1) * dims[i + 1] for i in range(len(dims) - 1))
@@ -376,15 +378,40 @@ def timing() -> dict:
         k2, k2_plain, *bound_ms(io, R_SPOT * T_FULL * (mlp + 2 * step_flops(sm, 8, False)))
     )
     # the same launch with no physics substeps: observation, MLP and ctrl only
-    res["k2_policy_only_ms"] = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 0, 8), 2)
+    res["k2_policy_only_ms"] = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 0, 8), 5)
     return res
+
+
+def occupancy_report() -> list:
+    """Dynamic shared memory per block and resident blocks per SM of each
+    kernel at the main paths' models, float32 and float64."""
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import rollout_blocks_per_sm
+    from judo_tpu_torch.physics.policy_rollout import policy_blocks_per_sm
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+
+    lines = []
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        m = LeapCube(device="cuda", dtype=dtype).planning_model
+        task = SpotNavigate(device="cuda", dtype=dtype)
+        for kernel, (nbytes, blocks) in (
+            ("fused_rollout leap", rollout_blocks_per_sm(m, dtype)),
+            ("physics_step leap", rollout_blocks_per_sm(m, dtype, cold=True)),
+            ("fused_policy_rollout spot", policy_blocks_per_sm(task.planning_model, task.policy, dtype)),
+        ):
+            lines.append(f"{kernel} {name}: {nbytes} B dynamic shared memory per block, {blocks} blocks per SM")
+    return lines
 
 
 def build_report(log: str) -> list:
     """ptxas lines naming each kernel's registers and spills."""
     keep = []
     for line in log.splitlines():
-        if any(k in line for k in ("Compiling entry function", "registers", "spill", "build seconds")):
+        if any(k in line for k in ("Compiling entry function", "Function properties", "registers", "spill",
+                                   "build seconds")):
             keep.append(line.strip())
     return keep
 
@@ -405,6 +432,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for line in build_report(_build.build_log("cuda")):
         print(f"  {line}")
+    for line in occupancy_report():
+        print(f"  {line}", flush=True)
 
     errs, ok = {}, True
 
@@ -415,15 +444,16 @@ def main() -> int:
         print(f"{label}: max err {value:.3e} limit {limit:.0e} {'ok' if good else 'FAIL'}", flush=True)
 
     for name in ("f64", "f32"):
-        e = errs[("fused_rollout", name)] = k1_vs_plain(name)
-        lim = LIMITS[name]
-        for k in ("states", "sensors"):
-            check(f"fused_rollout vs plain {name} leap B={B_MAIN} T={T_CHECK} {k}", e[k], lim)
-        if name == "f64":
-            check("fused_rollout vs plain f64 leap efc0", e["efc0"], lim)
-        else:
-            check(f"fused_rollout vs plain f32 leap efc0 relative (|efc0| max {e['efc0_scale']:.3e})",
-                  e["efc0_rel"], LIMITS["f32_efc0_rel"])
+        for B in (B_MAIN, 33):
+            e = errs[("fused_rollout", name, B)] = k1_vs_plain(name, B)
+            lim = LIMITS[name]
+            for k in ("states", "sensors"):
+                check(f"fused_rollout vs plain {name} leap B={B} T={T_CHECK} {k}", e[k], lim)
+            if name == "f64":
+                check(f"fused_rollout vs plain f64 leap B={B} efc0", e["efc0"], lim)
+            else:
+                check(f"fused_rollout vs plain f32 leap B={B} efc0 relative (|efc0| max {e['efc0_scale']:.3e})",
+                      e["efc0_rel"], LIMITS["f32_efc0_rel"])
     for name in ("f64", "f32"):
         for B in (R_SPOT, 80):
             e = errs[("fused_policy_rollout", name, B)] = k2_vs_plain(name, B)
@@ -474,7 +504,7 @@ def main() -> int:
                 "physics_step": step["counts"]["physics_step"]}
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
-         errs[("fused_rollout", "f32")]["states"]),
+         max(errs[("fused_rollout", "f32", B)]["states"] for B in (B_MAIN, 33))),
         ("fused_policy_rollout", "judo_tpu_torch/csrc/fused_policy_rollout.cu", "judo_tpu/physics/pallas_step.py:310",
          max(errs[("fused_policy_rollout", "f32", B)]["states"] for B in (R_SPOT, 80))),
         ("physics_step", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:71",

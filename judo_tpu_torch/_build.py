@@ -118,14 +118,21 @@ def load(kind: str) -> ctypes.CDLL:
     lib.jt_model_sizes.restype = None
     for name in ("jt_fused_rollout_f32", "jt_fused_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12
+        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 11
         fn.restype = ctypes.c_int
     lib.jt_policy_scratch_per_lane.argtypes = [ctypes.POINTER(JtSizes), ctypes.c_int]
     lib.jt_policy_scratch_per_lane.restype = ctypes.c_longlong
     for name in ("jt_fused_policy_rollout_f32", "jt_fused_policy_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 14
+        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12 + [ctypes.c_int, p]
         fn.restype = ctypes.c_int
+    if kind == "cuda":
+        i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        lib.jt_smem_optin.argtypes = [pi]
+        lib.jt_rollout_blocks_per_sm.argtypes = [i, i, i, pi]
+        lib.jt_policy_blocks_per_sm.argtypes = [i, i, pi]
+        for fn in (lib.jt_smem_optin, lib.jt_rollout_blocks_per_sm, lib.jt_policy_blocks_per_sm):
+            fn.restype = ctypes.c_int
     lib.jt_error_string.argtypes = [ctypes.c_int]
     lib.jt_error_string.restype = ctypes.c_char_p
     _LOADED[kind] = lib

@@ -5,19 +5,19 @@
 // tick, the observation, the locomotion MLP as four MXU matmuls, the ctrl
 // mapping and two physics steps, carrying state and policy output in VMEM).
 //
-// Design: as the fused rollout (fused_rollout.cu), one thread per rollout
-// with the T loop inside the thread and every carry in the rollout's slice of
-// a batch-last scratch buffer. The MLP runs in the thread too: each output is
-// a dot product over the layer's inputs, with the weights read from one
-// packed global array. All 32 threads of a warp read the same weight at the
-// same time, so each load is one broadcast from L1/L2; no cuBLAS, no tensor
-// cores. A ragged last warp (R = 24 leaves 8 idle lanes) is masked.
+// Design: as the fused rollout (fused_rollout.cu), one warp per rollout and
+// one warp per block, grid (R,), with the T loop inside the warp and the
+// rollout's whole scratch (the step body's, plus the policy's carried output,
+// ctrl and two activation buffers; 72.2 KB f32 on Spot) in dynamic shared
+// memory. The MLP runs lanes over output neurons on an input-major pack of the
+// weights (policy_rollout.py:pack_policy): at each input the 32 lanes read 32
+// consecutive weights, one coalesced line from L2, and the activation is a
+// shared-memory broadcast. No cuBLAS, no tensor cores.
 //
-// What bounds it on this card: latency, as for the fused rollout. Per tick a
-// thread does ~0.2 M dependent-load multiply-adds of the MLP against two
-// physics steps that each walk a dense 282 x 25 constraint Jacobian through
-// nine operator applies, one dependent chain per rollout with one warp per
-// SM. The MLP is a few percent of a tick; the physics step is the rest.
+// What bounds it on this card: latency, as for the fused rollout. Per tick the
+// warp walks 0.21 M weights (837 KB f32, more than an SM's L1, so they stream
+// from L2) and runs two physics steps over a dense 282 x 25 constraint
+// Jacobian. With R = 24 only 24 of the 132 SMs hold a rollout.
 #include <cuda_runtime.h>
 
 #include "jt_policy.cuh"
@@ -26,21 +26,29 @@ template <typename T>
 __global__ void __launch_bounds__(32) fused_policy_rollout_kernel(JtSizes s, const int* mi, const T* mf,
                                                                    const int* pi, const T* pf, const T* qpos0,
                                                                    const T* qvel0, const T* pout0, const T* cmds,
-                                                                   T* oq, T* ov, T* os, T* op, T* scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= s.B) return;
-  jt::policy_rollout_lane<T>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, scratch, b);
+                                                                   T* oq, T* ov, T* os, T* op) {
+  jt::policy_rollout<T>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, jt::rollout_smem<T>(),
+                        blockIdx.x);
 }
 
 template <typename T>
 static int launch(const JtSizes* s, const int* mi, const T* mf, const int* pi, const T* pf, const T* qpos0,
-                  const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, T* scratch,
+                  const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, int maxw,
                   void* stream) {
-  const int threads = 32;
-  const int blocks = (s->B + threads - 1) / threads;
-  fused_policy_rollout_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, pi, pf, qpos0, qvel0,
-                                                                              pout0, cmds, oq, ov, os, op, scratch);
+  const int bytes = (int)(jt::make_policy_scratch(*s, maxw).total * (int64_t)sizeof(T));
+  const cudaError_t e = jt::allow_smem(fused_policy_rollout_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  fused_policy_rollout_kernel<T><<<s->B, jt::Warp::kLanes, bytes, (cudaStream_t)stream>>>(
+      *s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int blocks_per_sm(int bytes, int* blocks) {
+  const cudaError_t e = jt::allow_smem(fused_policy_rollout_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_policy_rollout_kernel<T>,
+                                                           jt::Warp::kLanes, bytes);
 }
 
 extern "C" {
@@ -51,13 +59,19 @@ long long jt_policy_scratch_per_lane(const JtSizes* s, int maxw) {
 
 int jt_fused_policy_rollout_f32(const JtSizes* s, const int* mi, const float* mf, const int* pi, const float* pf,
                                 const float* qpos0, const float* qvel0, const float* pout0, const float* cmds,
-                                float* oq, float* ov, float* os, float* op, float* scratch, void* stream) {
-  return launch<float>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, scratch, stream);
+                                float* oq, float* ov, float* os, float* op, int maxw, void* stream) {
+  return launch<float>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, maxw, stream);
 }
 
 int jt_fused_policy_rollout_f64(const JtSizes* s, const int* mi, const double* mf, const int* pi, const double* pf,
                                 const double* qpos0, const double* qvel0, const double* pout0, const double* cmds,
-                                double* oq, double* ov, double* os, double* op, double* scratch, void* stream) {
-  return launch<double>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, scratch, stream);
+                                double* oq, double* ov, double* os, double* op, int maxw, void* stream) {
+  return launch<double>(s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, maxw, stream);
+}
+
+// Resident blocks per SM of the policy rollout kernel at `bytes` of dynamic
+// shared memory per block.
+int jt_policy_blocks_per_sm(int f64, int bytes, int* blocks) {
+  return f64 ? blocks_per_sm<double>(bytes, blocks) : blocks_per_sm<float>(bytes, blocks);
 }
 }

@@ -5,23 +5,23 @@
 // step, carrying qpos, qvel, warm-start forces and the Collatz-Wielandt probe
 // in VMEM scratch).
 //
-// Design: one thread per rollout. The sequential TPU grid over T becomes a
-// loop inside the thread; the carried state (qpos, qvel, forces, probe) stays
-// in this rollout's slice of the scratch buffer across steps. Global arrays
-// are batch-last (element k of rollout b at k * B + b), so the 32 threads of
-// a warp read and write 32 neighbouring addresses: the analogue of the
-// 128-lane tile. Blocks are one warp, so 320 rollouts occupy 10 SMs.
+// Design: one warp per rollout, one warp per block, grid (B,). The sequential
+// TPU grid over T becomes a loop inside the warp. The rollout's whole scratch
+// (make_scratch: state, carries, kinematics, M and its inverse, J and the
+// solver's vectors; 56.4 KB f32 on leap) lives in dynamic shared memory for
+// the launch, so no access of the chain waits on L2. The stages that walk the
+// dense J (assembly, Jacobi scaling, the operator applies of the CW bound and
+// the APGD loop, the final J^T f) and the island inverses spread their rows,
+// dofs, contacts or pairs over the 32 lanes (jt_step.cuh, Warp in
+// jt_common.cuh); kinematics, dynamics, sensors and the position update run on
+// lane 0. Inputs and outputs stay batch-last in global memory ((T, n, B)).
 //
-// What bounds it on this card: latency, not bytes. Each rollout is one long
+// What bounds it on this card: latency, not bytes. Each rollout is still one
 // dependent chain (kinematics -> dynamics -> collision -> assembly -> 8 APGD
-// iterations -> integration, times T), and one warp per SM issues roughly one
-// instruction per latency period. Measured on leap at 320 rollouts: ~10.8 ms
-// per physics step whether the rollouts sit 32, 8 or 1 to an SM, so neither
-// cache capacity nor SM count is the limit. The design answers what it can
-// without more parallelism: one launch per plan (no launch or host round trip
-// inside the horizon), coalesced batch-last scratch, and sums over constraint
-// rows kept in registers. Spreading one rollout over a warp (rows of J across
-// lanes) is the next step and is listed in ROADMAP.md.
+// iterations -> integration, times T), now 32 lanes wide in its J passes and
+// with shared-memory latency; at f32 three leap rollouts fit an SM (the SM's
+// 228 KB less 1 KB reserved per block), so 320 rollouts run in one wave over
+// the 132 SMs.
 #include <cuda_runtime.h>
 
 #include "jt_step.cuh"
@@ -29,11 +29,8 @@
 template <typename T>
 __global__ void __launch_bounds__(32) fused_rollout_kernel(JtSizes s, const int* mi, const T* mf,
                                                             const T* qpos0, const T* qvel0, const T* ctrl,
-                                                            const T* f0, T* oq, T* ov, T* os, T* of0,
-                                                            T* scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= s.B) return;
-  jt::rollout_lane<T>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, b);
+                                                            const T* f0, T* oq, T* ov, T* os, T* of0) {
+  jt::rollout<T>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jt::rollout_smem<T>(), blockIdx.x);
 }
 
 // One physics step with a cold probe (replaces pallas_step.py::
@@ -42,25 +39,35 @@ __global__ void __launch_bounds__(32) fused_rollout_kernel(JtSizes s, const int*
 template <typename T>
 __global__ void __launch_bounds__(32) physics_step_kernel(JtSizes s, const int* mi, const T* mf, const T* qpos,
                                                           const T* qvel, const T* ctrl, const T* f, T* oq, T* ov,
-                                                          T* os, T* of, T* scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= s.B) return;
-  jt::rollout_lane<T>(s, mi, mf, qpos, qvel, ctrl, f, oq, ov, os, of, scratch, b);
+                                                          T* os, T* of) {
+  jt::rollout<T>(s, mi, mf, qpos, qvel, ctrl, f, oq, ov, os, of, jt::rollout_smem<T>(), blockIdx.x);
+}
+
+template <typename T>
+using Kernel = void (*)(JtSizes, const int*, const T*, const T*, const T*, const T*, const T*, T*, T*, T*, T*);
+
+template <typename T>
+static Kernel<T> kernel_for(int cold) {
+  return cold ? physics_step_kernel<T> : fused_rollout_kernel<T>;
 }
 
 template <typename T>
 static int launch(const JtSizes* s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
-                  const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, void* stream) {
-  const int threads = 32;
-  const int blocks = (s->B + threads - 1) / threads;
-  if (s->cold) {
-    physics_step_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq,
-                                                                        ov, os, of0, scratch);
-  } else {
-    fused_rollout_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq,
-                                                                         ov, os, of0, scratch);
-  }
+                  const T* f0, T* oq, T* ov, T* os, T* of0, void* stream) {
+  const Kernel<T> k = kernel_for<T>(s->cold);
+  const int bytes = (int)(jt::make_scratch(*s).total * (int64_t)sizeof(T));
+  const cudaError_t e = jt::allow_smem(k, bytes);
+  if (e != cudaSuccess) return (int)e;
+  k<<<s->B, jt::Warp::kLanes, bytes, (cudaStream_t)stream>>>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int blocks_per_sm(int cold, int bytes, int* blocks) {
+  const Kernel<T> k = kernel_for<T>(cold);
+  const cudaError_t e = jt::allow_smem(k, bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, jt::Warp::kLanes, bytes);
 }
 
 extern "C" {
@@ -75,14 +82,28 @@ void jt_model_sizes(const JtSizes* s, int* nint, int* nflt) {
 
 int jt_fused_rollout_f32(const JtSizes* s, const int* mi, const float* mf, const float* qpos0, const float* qvel0,
                          const float* ctrl, const float* f0, float* oq, float* ov, float* os, float* of0,
-                         float* scratch, void* stream) {
-  return launch<float>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, stream);
+                         void* stream) {
+  return launch<float>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, stream);
 }
 
 int jt_fused_rollout_f64(const JtSizes* s, const int* mi, const double* mf, const double* qpos0,
                          const double* qvel0, const double* ctrl, const double* f0, double* oq, double* ov,
-                         double* os, double* of0, double* scratch, void* stream) {
-  return launch<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, stream);
+                         double* os, double* of0, void* stream) {
+  return launch<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, stream);
+}
+
+// Resident blocks per SM of the rollout kernel (cold: the single-step one) at
+// `bytes` of dynamic shared memory per block.
+int jt_rollout_blocks_per_sm(int cold, int f64, int bytes, int* blocks) {
+  return f64 ? blocks_per_sm<double>(cold, bytes, blocks) : blocks_per_sm<float>(cold, bytes, blocks);
+}
+
+// The current device's opt-in limit of shared memory per block, in bytes.
+int jt_smem_optin(int* bytes) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 const char* jt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,8 +1,21 @@
-// CPU build of the fused rollout's arithmetic: the same jt::rollout_lane body
-// as fused_rollout.cu, run for each rollout in turn. It has the same plain C
-// interface, so the CPU tests hold the kernel's own arithmetic against the
-// plain PyTorch version without a GPU. Build with g++ (see _build.py).
+// CPU build of the fused rollout: the same jt::rollout body as
+// fused_rollout.cu, compiled by g++. Warp (jt_common.cuh) plays the 32 lanes
+// of the card's warp in one thread, in the card's partition and reduction
+// order, and each rollout's scratch is a heap buffer in place of shared
+// memory. It has the same plain C interface, so the CPU tests hold the
+// kernel's own arithmetic against the plain PyTorch version without a GPU.
+// Build with g++ (see _build.py).
+#include <vector>
+
 #include "jt_step.cuh"
+
+template <typename T>
+static int run(const JtSizes* s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
+               const T* f0, T* oq, T* ov, T* os, T* of0) {
+  std::vector<T> work(jt::make_scratch(*s).total);
+  for (int b = 0; b < s->B; ++b) jt::rollout<T>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, work.data(), b);
+  return 0;
+}
 
 extern "C" {
 
@@ -15,17 +28,14 @@ void jt_model_sizes(const JtSizes* s, int* nint, int* nflt) {
 }
 
 int jt_fused_rollout_f32(const JtSizes* s, const int* mi, const float* mf, const float* qpos0, const float* qvel0,
-                         const float* ctrl, const float* f0, float* oq, float* ov, float* os, float* of0,
-                         float* scratch, void*) {
-  for (int b = 0; b < s->B; ++b) jt::rollout_lane<float>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, b);
-  return 0;
+                         const float* ctrl, const float* f0, float* oq, float* ov, float* os, float* of0, void*) {
+  return run<float>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
 }
 
 int jt_fused_rollout_f64(const JtSizes* s, const int* mi, const double* mf, const double* qpos0,
                          const double* qvel0, const double* ctrl, const double* f0, double* oq, double* ov,
-                         double* os, double* of0, double* scratch, void*) {
-  for (int b = 0; b < s->B; ++b) jt::rollout_lane<double>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, scratch, b);
-  return 0;
+                         double* os, double* of0, void*) {
+  return run<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
 }
 
 const char* jt_error_string(int) { return "no error"; }

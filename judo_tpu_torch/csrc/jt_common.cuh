@@ -1,19 +1,25 @@
-// Shared definitions of the lanes step written for one thread per rollout.
+// Shared definitions of the step body, written for one warp per rollout.
 //
-// Everything here is __host__ __device__: nvcc builds it into the CUDA kernel
-// (fused_rollout.cu) and g++ builds the same arithmetic into a CPU library
-// (fused_rollout_host.cpp) that the CPU tests hold against the plain PyTorch
-// version. The model arrives as two flat arrays (ints and scalars) in fixed
-// record layouts that judo_tpu_torch/physics/fused_rollout.py packs; every
-// per-rollout work array lives in a batch-last scratch buffer (element k of
-// rollout b at k * B + b), so neighbouring threads touch neighbouring
-// addresses. No per-thread array is sized by the model (only fixed 3-, 4-,
-// 9- and 15-element locals), so the kernel has no model-size capacity to
-// exceed: the wrapper sizes the scratch buffer from jt_scratch_per_lane.
+// Everything here is __host__ __device__: nvcc builds it into the CUDA kernels
+// (fused_rollout.cu, fused_policy_rollout.cu) and g++ builds the same code into
+// a CPU library (*_host.cpp) that the CPU tests hold against the plain PyTorch
+// versions. The model arrives as two flat arrays (ints and scalars) in fixed
+// record layouts that judo_tpu_torch/physics/fused_rollout.py packs. One warp
+// computes one rollout, and that rollout's work arrays (make_scratch) are one
+// contiguous buffer: dynamic shared memory on the card, a heap buffer in the
+// host twin. The 32 lanes share the work through Warp (below); on the host the
+// same primitives play the 32 lanes in the card's order, so the host twin runs
+// the partition and summation order that the card runs. No per-thread array is
+// sized by the model (only fixed small locals): the wrapper sizes the shared
+// memory from jt_scratch_per_lane and raises when it exceeds the card's
+// per-block limit.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
 
 #ifdef __CUDACC__
 #define HD __host__ __device__ inline
@@ -109,12 +115,17 @@ struct Scratch {
   int64_t cdist, cpos, cnorm;
   int64_t J, aref, reg, diag, act, invs, bvec, f, y, grad, fnew, vv, bv, muc;
   int64_t total;
+  int jld;  // row stride of J
 };
 
 HD Scratch make_scratch(const JtSizes& s) {
   Scratch S;
   int64_t o = 0;
   const int64_t nb = s.nbody, nv = s.nv, ne = s.nefc, nc = s.ncon;
+  // J's rows are padded to an odd stride: lanes that walk different rows of J
+  // (one row each) then fall in different shared-memory banks, where an even
+  // stride such as leap's nv = 22 would put two lanes on every bank.
+  S.jld = s.nv | 1;
   S.qpos = o; o += s.nq;
   S.qvel = o; o += nv;
   S.fw = o; o += ne;
@@ -149,7 +160,7 @@ HD Scratch make_scratch(const JtSizes& s) {
   S.cdist = o; o += nc;
   S.cpos = o; o += 3 * nc;
   S.cnorm = o; o += 3 * nc;
-  S.J = o; o += ne * nv;
+  S.J = o; o += ne * S.jld;
   S.aref = o; o += ne;
   S.reg = o; o += ne;
   S.diag = o; o += ne;
@@ -167,7 +178,9 @@ HD Scratch make_scratch(const JtSizes& s) {
   return S;
 }
 
-// One rollout's view of a batch-last array: element k at p[k * stride].
+// A strided view: element k at p[k * s]. The rollout's scratch is a view with
+// s = 1; a batch-last global array (element k of rollout b at k * B + b) is
+// one with s = B.
 template <typename T>
 struct Lane {
   T* p;
@@ -175,6 +188,91 @@ struct Lane {
   HD T& operator[](int64_t k) const { return p[k * s]; }
   HD Lane at(int64_t off) const { return Lane{p + off * s, s}; }
 };
+
+// The 32 lanes of the warp that computes one rollout. Every lane calls each
+// primitive together with the others (never inside single() or inside the body
+// of another primitive), and code between primitives is the same on every
+// lane and writes no scratch.
+//   for_each(n, f): f(i) for i < n, lane l taking i = l, l + 32, ...; ends
+//     with __syncwarp, so what f wrote is visible to every lane afterwards.
+//   sum(n, f), max(n, f, init): each lane folds its indices in that order,
+//     then an xor-shuffle tree combines the 32 partials; every lane gets the
+//     same value.
+//   single(f): f() on lane 0 alone, then __syncwarp.
+// Compiled by g++, one thread plays the 32 lanes in the same partition and
+// the same tree, so the host twin's sums round as the card's do.
+struct Warp {
+  static constexpr int kLanes = 32;
+
+  template <class F>
+  static HD void for_each(int n, F f) {
+#ifdef __CUDA_ARCH__
+    for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) f(i);
+    __syncwarp();
+#else
+    for (int l = 0; l < kLanes; ++l)
+      for (int i = l; i < n; i += kLanes) f(i);
+#endif
+  }
+
+  template <class F>
+  static HD void single(F f) {
+#ifdef __CUDA_ARCH__
+    if ((threadIdx.x & (kLanes - 1)) == 0) f();
+    __syncwarp();
+#else
+    f();
+#endif
+  }
+
+  template <class F>
+  static HD auto sum(int n, F f) -> decltype(f(0)) {
+    return fold(n, f, decltype(f(0))(0), [](decltype(f(0)) a, decltype(f(0)) b) { return a + b; });
+  }
+
+  template <class F, typename T>
+  static HD T max(int n, F f, T init) {
+    return fold(n, f, init, [](T a, T b) { return a > b ? a : b; });
+  }
+
+ private:
+  template <class F, typename T, class Op>
+  static HD T fold(int n, F f, T init, Op op) {
+#ifdef __CUDA_ARCH__
+    T p = init;
+    for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) p = op(p, f(i));
+    for (int o = kLanes / 2; o > 0; o >>= 1) p = op(p, __shfl_xor_sync(0xffffffffu, p, o));
+    return p;
+#else
+    T p[kLanes], q[kLanes];
+    for (int l = 0; l < kLanes; ++l) {
+      p[l] = init;
+      for (int i = l; i < n; i += kLanes) p[l] = op(p[l], f(i));
+    }
+    for (int o = kLanes / 2; o > 0; o >>= 1) {
+      for (int l = 0; l < kLanes; ++l) q[l] = op(p[l], p[l ^ o]);
+      for (int l = 0; l < kLanes; ++l) p[l] = q[l];
+    }
+    return p[0];
+#endif
+  }
+};
+
+#ifdef __CUDACC__
+// The block's dynamic shared memory, which holds the rollout's scratch.
+template <typename T>
+__device__ inline T* rollout_smem() {
+  extern __shared__ __align__(16) unsigned char jt_smem[];
+  return reinterpret_cast<T*>(jt_smem);
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory per block: above 48 KB a
+// launch needs this, once for each kernel and each template instantiation.
+template <class K>
+inline cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+#endif
 
 // Scalar helpers with one overload set for float and double.
 HD float tsqrt(float x) { return sqrtf(x); }

@@ -1,6 +1,7 @@
 // Smooth dynamics of one rollout: kinematics, CoM quantities, the CRB mass
-// matrix, RNE bias, passive and actuator forces, and the exact inverses over
-// the static dof islands. Scalar twins of judo_tpu_torch/physics/lane_engine.py.
+// matrix, RNE bias, passive and actuator forces (scalar code, run on lane 0),
+// and the exact inverses and mat-vecs over the static dof islands (lanes over
+// rows). Twins of judo_tpu_torch/physics/lane_engine.py.
 #pragma once
 
 #include "jt_common.cuh"
@@ -354,59 +355,65 @@ HD void smooth_force(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<const T> 
 
 // Exact inverse of the island blocks of the matrix at `src` into `dst`
 // (Gauss-Jordan without pivoting, then symmetrised), as lane_engine.spd_inverse_l.
+// Lanes over the rows of an island: at pivot j each lane eliminates column j
+// from its own row, reading only row j, which no lane writes in that step.
 template <typename T>
 HD void island_inverse(const Ctx<T>& c, int64_t src, int64_t dst) {
-  const Lane<T> w = c.w;
+  T* const w = c.w.p;
   const int nv = c.s.nv;
   for (int is = 0; is < c.s.nisl; ++is) {
     const int st = c.mi[c.L.ii + II * is], n = c.mi[c.L.ii + II * is + 1];
-    const Lane<T> a = w.at(c.S.work);
-    const Lane<T> x = w.at(dst + st * nv + st);
-    for (int r = 0; r < n; ++r)
-      for (int q = 0; q < n; ++q) {
-        a[r * n + q] = w[src + (st + r) * nv + st + q];
-        x[r * nv + q] = r == q ? T(1) : T(0);
-      }
+    T* const a = w + c.S.work;
+    T* const x = w + dst + st * nv + st;
+    const T* const m = w + src + st * nv + st;
+    Warp::for_each(n * n, [&](int k) {
+      const int r = k / n, q = k % n;
+      a[k] = m[r * nv + q];
+      x[r * nv + q] = r == q ? T(1) : T(0);
+    });
     for (int j = 0; j < n; ++j) {
-      const T d = a[j * n + j];
-      for (int r = 0; r < n; ++r) {
-        if (r == j) continue;
-        const T f = a[r * n + j] / d;
+      Warp::for_each(n, [&](int r) {
+        if (r == j) return;
+        const T f = a[r * n + j] / a[j * n + j];
         for (int q = 0; q < n; ++q) {
           a[r * n + q] = a[r * n + q] - f * a[j * n + q];
           x[r * nv + q] = x[r * nv + q] - f * x[j * nv + q];
         }
-      }
+      });
     }
-    for (int r = 0; r < n; ++r) {
+    Warp::for_each(n, [&](int r) {
       const T d = a[r * n + r];
       for (int q = 0; q < n; ++q) x[r * nv + q] = x[r * nv + q] / d;
-    }
-    for (int r = 0; r < n; ++r)
-      for (int q = r; q < n; ++q) {
-        const T s = T(0.5) * (x[r * nv + q] + x[q * nv + r]);
-        x[r * nv + q] = s;
-        x[q * nv + r] = s;
-      }
+    });
+    Warp::for_each(n * n, [&](int k) {
+      const int r = k / n, q = k % n;
+      if (q < r) return;
+      const T s = T(0.5) * (x[r * nv + q] + x[q * nv + r]);
+      x[r * nv + q] = s;
+      x[q * nv + r] = s;
+    });
   }
 }
 
-// out = blockdiag(A) v over the islands (|A| when `absval`).
+// out = blockdiag(A) v over the islands (|A| when `absval`); lanes over the
+// rows of all islands at once (the islands tile the dofs).
 template <typename T>
 HD void island_mv(const Ctx<T>& c, int64_t A, int64_t v, int64_t out, bool absval) {
-  const Lane<T> w = c.w;
+  T* const w = c.w.p;
   const int nv = c.s.nv;
-  for (int is = 0; is < c.s.nisl; ++is) {
-    const int st = c.mi[c.L.ii + II * is], n = c.mi[c.L.ii + II * is + 1];
-    for (int r = 0; r < n; ++r) {
-      T acc = T(0);
-      for (int q = 0; q < n; ++q) {
-        const T m = w[A + (st + r) * nv + st + q];
-        acc = acc + (absval ? tabs(m) : m) * w[v + st + q];
-      }
-      w[out + st + r] = acc;
+  Warp::for_each(nv, [&](int i) {
+    int st = 0, n = nv;
+    for (int is = 0; is < c.s.nisl; ++is) {
+      const int s0 = c.mi[c.L.ii + II * is], n0 = c.mi[c.L.ii + II * is + 1];
+      if (i >= s0 && i < s0 + n0) { st = s0; n = n0; }
     }
-  }
+    T acc = T(0);
+    for (int q = 0; q < n; ++q) {
+      const T m = w[A + i * nv + st + q];
+      acc = acc + (absval ? tabs(m) : m) * w[v + st + q];
+    }
+    w[out + i] = acc;
+  });
 }
 
 }  // namespace jt

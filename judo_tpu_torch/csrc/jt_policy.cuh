@@ -1,6 +1,7 @@
 // One Spot policy tick of one rollout, and the whole policy-in-the-loop
-// rollout: the 84-dim observation, the locomotion MLP, the mapping to the 19
-// position targets, and `substeps` physics steps. Scalar twin of
+// rollout, computed by one warp: the 84-dim observation, the locomotion MLP
+// (lanes over output neurons), the mapping to the 19 position targets, and
+// `substeps` physics steps. Twin of
 // judo_tpu_torch/tasks/spot/policy.py (build_observation_l, the MLP,
 // control_from_policy_l) and physics/policy_rollout.py:
 // policy_rollout_lanes_reference.
@@ -19,8 +20,9 @@ HD double texp(double x) { return exp(x); }
 // The packed policy (policy_rollout.py:pack_policy).
 // ints:    nlayers, dims[nlayers + 1], acts[nlayers], mujoco_to_orbit[19],
 //          orbit_to_mujoco_legs[12]
-// scalars: default_joint_pos[19], then per layer its [W^T | b] block
-//          (out rows of in + 1), row-major
+// scalars: default_joint_pos[19], then per layer its weights input-major
+//          (element (i, r) of an in x out layer at i * out + r), then its out
+//          biases
 template <typename T>
 struct Policy {
   const int* dims;
@@ -70,85 +72,97 @@ HD T activate(int act, T x) {
 }
 
 // obs -> MLP -> ctrl for one tick; the new policy output lands in P.pout and
-// the position targets in P.ctrl. Every thread of a warp reads the same
-// weight at the same time, so the weight loads are broadcasts.
+// the position targets in P.ctrl. The observation and the ctrl mapping run on
+// lane 0. The MLP runs lanes over output neurons: at each input i the 32 lanes
+// read 32 consecutive weights of the input-major pack (one coalesced line),
+// and the activation, in shared memory, is a broadcast.
 template <typename T>
 HD void policy_tick(const Ctx<T>& c, const Policy<T>& p, const PolicyScratch& P, Lane<const T> cmd) {
-  const Lane<T> w = c.w;
-  const Lane<T> qpos = w.at(c.S.qpos), qvel = w.at(c.S.qvel);
+  T* const w = c.w.p;
+  const Lane<T> qpos = c.w.at(c.S.qpos), qvel = c.w.at(c.S.qvel);
   // observation: body-frame linear velocity, angular velocity, projected
   // gravity, the 25-dim command, joint positions and velocities in the
   // policy's joint order, the last policy output
-  const Lane<T> obs = w.at(P.a);
-  T qinv[4] = {qpos[3], -qpos[4], -qpos[5], -qpos[6]}, v[3], o[3];
-  const T down[3] = {T(0), T(0), T(-1)};
-  lload(qvel, 0, 3, v);
-  qrot(qinv, v, o);
-  for (int k = 0; k < 3; ++k) obs[k] = o[k];
-  for (int k = 0; k < 3; ++k) obs[3 + k] = qvel[3 + k];
-  qrot(qinv, down, o);
-  for (int k = 0; k < 3; ++k) obs[6 + k] = o[k];
-  for (int k = 0; k < kCmd; ++k) obs[9 + k] = cmd[k];
-  for (int j = 0; j < 19; ++j) {
-    const int src = p.m2o[j];
-    obs[34 + j] = qpos[7 + src] - p.djp[src];
-    obs[53 + j] = qvel[6 + src];
-  }
-  for (int k = 0; k < kPout; ++k) obs[72 + k] = w[P.pout + k];
+  Warp::single([&] {
+    const Lane<T> obs = c.w.at(P.a);
+    T qinv[4] = {qpos[3], -qpos[4], -qpos[5], -qpos[6]}, v[3], o[3];
+    const T down[3] = {T(0), T(0), T(-1)};
+    lload(qvel, 0, 3, v);
+    qrot(qinv, v, o);
+    for (int k = 0; k < 3; ++k) obs[k] = o[k];
+    for (int k = 0; k < 3; ++k) obs[3 + k] = qvel[3 + k];
+    qrot(qinv, down, o);
+    for (int k = 0; k < 3; ++k) obs[6 + k] = o[k];
+    for (int k = 0; k < kCmd; ++k) obs[9 + k] = cmd[k];
+    for (int j = 0; j < 19; ++j) {
+      const int src = p.m2o[j];
+      obs[34 + j] = qpos[7 + src] - p.djp[src];
+      obs[53 + j] = qvel[6 + src];
+    }
+    for (int k = 0; k < kPout; ++k) obs[72 + k] = w[P.pout + k];
+  });
   // MLP, ping-ponging between the two activation buffers
   int64_t in = P.a, out = P.b;
   const T* W = p.W;
   for (int l = 0; l < p.nl; ++l) {
-    const int ni = p.dims[l], no = p.dims[l + 1];
-    for (int r = 0; r < no; ++r) {
-      const T* row = W + (int64_t)r * (ni + 1);
+    const int ni = p.dims[l], no = p.dims[l + 1], act = p.acts[l];
+    const T* const bias = W + (int64_t)ni * no;
+    Warp::for_each(no, [&](int r) {
       T acc = T(0);
-      for (int i = 0; i < ni; ++i) acc = acc + row[i] * w[in + i];
-      w[out + r] = activate(p.acts[l], acc + row[ni]);
-    }
-    W += (int64_t)no * (ni + 1);
+      // unrolled so that eight weight loads from L2 are in flight before
+      // their multiply-adds (the sum keeps its order); chip_profile.py unroll
+      // measures it
+#ifdef __CUDA_ARCH__
+#pragma unroll 8
+#endif
+      for (int i = 0; i < ni; ++i) acc = acc + W[(int64_t)i * no + r] * w[in + i];
+      w[out + r] = activate(act, acc + bias[r]);
+    });
+    W += (int64_t)(ni + 1) * no;
     const int64_t tmp = in;
     in = out;
     out = tmp;
   }
-  for (int k = 0; k < kPout; ++k) w[P.pout + k] = w[in + k];
+  Warp::for_each(kPout, [&](int k) { w[P.pout + k] = w[in + k]; });
   // position targets: default pose + 0.2 x output (legs, mujoco order), the
   // first leg with a nonzero command overrides its three joints, arm from
   // the command
-  const Lane<T> ctrl = w.at(P.ctrl);
-  for (int i = 0; i < 12; ++i) ctrl[i] = T(0.2) * w[P.pout + p.o2m[i]] + p.djp[i];
-  for (int leg = 0; leg < 4; ++leg) {
-    const T a = cmd[10 + 3 * leg], b = cmd[11 + 3 * leg], d = cmd[12 + 3 * leg];
-    if (a * a + b * b + d * d > T(0)) {
-      for (int k = 0; k < 3; ++k) ctrl[3 * leg + k] = cmd[10 + 3 * leg + k];
-      break;
+  Warp::single([&] {
+    const Lane<T> ctrl = c.w.at(P.ctrl);
+    for (int i = 0; i < 12; ++i) ctrl[i] = T(0.2) * w[P.pout + p.o2m[i]] + p.djp[i];
+    for (int leg = 0; leg < 4; ++leg) {
+      const T a = cmd[10 + 3 * leg], b = cmd[11 + 3 * leg], d = cmd[12 + 3 * leg];
+      if (a * a + b * b + d * d > T(0)) {
+        for (int k = 0; k < 3; ++k) ctrl[3 * leg + k] = cmd[10 + 3 * leg + k];
+        break;
+      }
     }
-  }
-  for (int k = 0; k < 7; ++k) ctrl[12 + k] = cmd[3 + k];
+    for (int k = 0; k < 7; ++k) ctrl[12 + k] = cmd[3 + k];
+  });
 }
 
-// The whole policy-in-the-loop rollout of rollout b (the body of the CUDA
-// kernel and of the host twin's loop). Forces start at zero and the probe at
-// ones; no onset force is read or written.
+// The whole policy-in-the-loop rollout of rollout b, run by the 32 lanes of
+// one warp on the scratch `work` (the body of the CUDA kernel and of the host
+// twin's loop). Forces start at zero and the probe at ones; no onset force is
+// read or written.
 template <typename T>
-HD void policy_rollout_lane(const JtSizes& s, const int* mi, const T* mf, const int* pi, const T* pf,
-                            const T* qpos0, const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov,
-                            T* os, T* op, T* scratch, int b) {
-  const Ctx<T> c = lane_ctx(s, mi, mf, scratch, b);
+HD void policy_rollout(const JtSizes& s, const int* mi, const T* mf, const int* pi, const T* pf, const T* qpos0,
+                       const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, T* work, int b) {
+  const Ctx<T> c = rollout_ctx(s, mi, mf, work);
   const Policy<T> p = policy_view(pi, pf);
   const PolicyScratch P = make_policy_scratch(s, p.maxw);
   const int64_t B = s.B;
-  lane_init(c, qpos0, qvel0, (const T*)nullptr, b);
-  for (int k = 0; k < kPout; ++k) c.w[P.pout + k] = pout0[k * B + b];
-  const Lane<const T> ctrl{c.w.p + P.ctrl * B, B};
+  rollout_init(c, qpos0, qvel0, (const T*)nullptr, b);
+  Warp::for_each(kPout, [&](int k) { work[P.pout + k] = pout0[k * B + b]; });
+  const Lane<const T> ctrl{work + P.ctrl, 1};
   for (int t = 0; t < s.T; ++t) {
     const Lane<const T> cmd_t{cmds + (int64_t)t * kCmd * B + b, B};
     const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
     policy_tick(c, p, P, cmd_t);
-    for (int k = 0; k < s.ns_; ++k) sens_t[k] = T(0);
+    Warp::for_each(s.ns_, [&](int k) { sens_t[k] = T(0); });
     for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl, sens_t);
-    lane_store_state(c, oq, ov, t, b);
-    for (int k = 0; k < kPout; ++k) op[((int64_t)t * kPout + k) * B + b] = c.w[P.pout + k];
+    store_state(c, oq, ov, t, b);
+    Warp::for_each(kPout, [&](int k) { op[((int64_t)t * kPout + k) * B + b] = work[P.pout + k]; });
   }
 }
 

@@ -1,8 +1,11 @@
-// One physics step and the whole T-step rollout of one rollout: sensors,
-// narrowphase, constraint assembly, the accelerated projected-gradient dual
-// solve with the carried Collatz-Wielandt probe, and implicit-damping
-// integration. Scalar twin of judo_tpu_torch/physics/lane_step.py:step_l and
-// fused_rollout.py:rollout_lanes_reference.
+// One physics step and the whole T-step rollout of one rollout, computed by
+// one warp: sensors, narrowphase, constraint assembly, the accelerated
+// projected-gradient dual solve with the carried Collatz-Wielandt probe, and
+// implicit-damping integration. Twin of judo_tpu_torch/physics/lane_step.py:
+// step_l and fused_rollout.py:rollout_lanes_reference. Every stage that walks
+// J or an nefc-long vector spreads its rows (or dofs, contacts, pairs) over
+// the lanes through Warp; kinematics, dynamics, sensors and the position
+// update run on lane 0.
 #pragma once
 
 #include "jt_collision.cuh"
@@ -76,10 +79,11 @@ HD void sensors(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<T> out) {
   }
 }
 
+// Lanes over pairs; each pair writes its own contact slots.
 template <typename T>
 HD void narrowphase(const Ctx<T>& c) {
   const Lane<T> w = c.w;
-  for (int p = 0; p < c.s.npair; ++p) {
+  Warp::for_each(c.s.npair, [&](int p) {
     const int* pi = c.mi + c.L.ip + PI * p;
     const T* pf = c.mf + c.L.fp + PF * p;
     T x1[3], m1[9], x2[3], m2[9], d[4], pos[12], nrm[12];
@@ -100,29 +104,31 @@ HD void narrowphase(const Ctx<T>& c) {
       lstore(w, c.S.cpos + 3 * slot, 3, pos + 3 * s);
       lstore(w, c.S.cnorm + 3 * slot, 3, nrm + 3 * s);
     }
-  }
+  });
 }
 
-// Constraint rows (masked by activity), and b = J qacc_smooth - aref.
+// Constraint rows (masked by activity), and b = J qacc_smooth - aref. Lanes
+// over limit rows, then over contact slots (each writes its own 3 or 4 rows),
+// then over rows for the masking and b.
 template <typename T>
 HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   const Lane<T> w = c.w;
-  const int nv = c.s.nv, nlim = c.s.nlim, nc = c.s.ncon;
+  const int nv = c.s.nv, nlim = c.s.nlim, nc = c.s.ncon, ld = c.S.jld;
   const T impratio = c.mf[4];
-  for (int r = 0; r < nlim; ++r) {
+  Warp::for_each(nlim, [&](int r) {
     const int* li = c.mi + c.L.il + LI * r;
     const T* lf = c.mf + c.L.fl + LF * r;
     const T side = lf[0], q = qpos[li[0]];
     const T dist = side > T(0) ? q - lf[1] : lf[1] - q;
     const T pos = dist - lf[2];
     const T imp = impedance(lf + 3, pos);
-    for (int v = 0; v < nv; ++v) w[c.S.J + r * nv + v] = v == li[1] ? side : T(0);
+    for (int v = 0; v < nv; ++v) w[c.S.J + r * ld + v] = v == li[1] ? side : T(0);
     w[c.S.aref + r] = -lf[9] * (side * qvel[li[1]]) - lf[8] * imp * pos;
     w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
     w[c.S.act + r] = dist < lf[2] ? T(1) : T(0);
     w[c.S.diag + r] = lf[10];
-  }
-  for (int ci = 0; ci < nc; ++ci) {
+  });
+  Warp::for_each(nc, [&](int ci) {
     const int* sI = c.mi + c.L.ic + CI * ci;
     const T* sF = c.mf + c.L.fc + CF * ci;
     const int* mask1 = c.mi + c.L.imask + nv * sI[0];
@@ -171,7 +177,7 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
                        pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
       for (int f = 0; f < nrow; ++f) {
         const int r = pyr ? nlim + 4 * ci + f : nlim + f * nc + ci;
-        w[c.S.J + r * nv + v] = jf[f];
+        w[c.S.J + r * ld + v] = jf[f];
         vel[f] = vel[f] + jf[f] * qvel[v];
       }
     }
@@ -183,28 +189,32 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
       w[c.S.act + r] = active;
       w[c.S.diag + r] = sF[9];
     }
-  }
-  for (int r = 0; r < c.s.nefc; ++r) {
-    const bool on = w[c.S.act + r] > T(0);
+  });
+  Warp::for_each(c.s.nefc, [&](int r) {
+    const T a = w[c.S.act + r];
     T bv = T(0);
     for (int v = 0; v < nv; ++v) {
-      const T j = w[c.S.J + r * nv + v] * w[c.S.act + r];
-      w[c.S.J + r * nv + v] = j;
+      const T j = w[c.S.J + r * ld + v] * a;
+      w[c.S.J + r * ld + v] = j;
       bv = bv + j * w[c.S.qacc_s + v];
     }
-    w[c.S.bvec + r] = bv - w[c.S.aref + r] * w[c.S.act + r];
-    if (!on) { w[c.S.reg + r] = T(1); w[c.S.diag + r] = T(1); }
-  }
+    w[c.S.bvec + r] = bv - w[c.S.aref + r] * a;
+    if (!(a > T(0))) { w[c.S.reg + r] = T(1); w[c.S.diag + r] = T(1); }
+  });
 }
 
 // Projection onto the orthant (limit rows, pyramidal facets) x second-order
-// cones (elliptic contacts).
+// cones (elliptic contacts): lanes over orthant rows, then over contacts.
 template <typename T>
 HD void project(const Ctx<T>& c, int64_t z) {
-  const Lane<T> w = c.w;
+  T* const w = c.w.p;
   const int nlim = c.s.pyramidal ? c.s.nefc : c.s.nlim, nc = c.s.pyramidal ? 0 : c.s.ncon;
-  for (int r = 0; r < nlim; ++r) w[z + r] = tmax(w[z + r], T(0));
-  for (int ci = 0; ci < nc; ++ci) {
+  Warp::for_each(nlim + nc, [&](int i) {
+    if (i < nlim) {
+      w[z + i] = tmax(w[z + i], T(0));
+      return;
+    }
+    const int ci = i - nlim;
     const T mu = w[c.S.muc + ci];
     const T n = w[z + nlim + ci], t1 = w[z + nlim + nc + ci], t2 = w[z + nlim + 2 * nc + ci];
     const T s = tsqrt(t1 * t1 + t2 * t2);
@@ -216,111 +226,113 @@ HD void project(const Ctx<T>& c, int64_t z) {
     w[z + nlim + ci] = n_out;
     w[z + nlim + nc + ci] = t1 * ts;
     w[z + nlim + 2 * nc + ci] = t2 * ts;
-  }
+  });
 }
 
-// tv1 = J^T x (|J|^T x when absval). The sum over rows runs in a register:
-// accumulating in scratch would put a store-to-load round trip through the
-// cache on every one of the nefc * nv steps of the chain.
+// tv1 = J^T x (|J|^T x when absval): lanes over dofs, each summing its column
+// over all rows in a register; neighbouring lanes read neighbouring words.
 template <typename T>
 HD void jt_vec(const Ctx<T>& c, int64_t x, bool absval) {
-  const Lane<T> w = c.w;
-  const int nv = c.s.nv, ne = c.s.nefc;
-  for (int v = 0; v < nv; ++v) {
+  T* const w = c.w.p;
+  const T* const J = w + c.S.J;
+  const int ne = c.s.nefc, ld = c.S.jld;
+  Warp::for_each(c.s.nv, [&](int v) {
     T acc = T(0);
     for (int r = 0; r < ne; ++r) {
-      const T j = w[c.S.J + r * nv + v];
+      const T j = J[r * ld + v];
       acc = acc + (absval ? tabs(j) : j) * w[x + r];
     }
     w[c.S.tv1 + v] = acc;
-  }
+  });
 }
 
-// out = J M^-1 J^T x + reg x  (|J| |M^-1| |J|^T x + reg x when absval).
+// out = J M^-1 J^T x + reg x  (|J| |M^-1| |J|^T x + reg x when absval); the
+// last product runs lanes over rows.
 template <typename T>
 HD void apply_op(const Ctx<T>& c, int64_t x, int64_t out, bool absval) {
-  const Lane<T> w = c.w;
-  const int nv = c.s.nv, ne = c.s.nefc;
+  T* const w = c.w.p;
+  const T* const J = w + c.S.J;
+  const int nv = c.s.nv, ld = c.S.jld;
   jt_vec(c, x, absval);
   island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, absval);
-  for (int r = 0; r < ne; ++r) {
+  Warp::for_each(c.s.nefc, [&](int r) {
     T acc = T(0);
     for (int v = 0; v < nv; ++v) {
-      const T j = w[c.S.J + r * nv + v];
+      const T j = J[r * ld + v];
       acc = acc + (absval ? tabs(j) : j) * w[c.S.tv2 + v];
     }
     w[out + r] = acc + w[c.S.reg + r] * w[x + r];
-  }
+  });
 }
 
+// 1 / |x| over n entries (a warp sum, the same on every lane).
 template <typename T>
-HD T lane_norm_inv(const Lane<T> w, int64_t x, int n) {
-  T s = T(0);
-  for (int r = 0; r < n; ++r) s = s + w[x + r] * w[x + r];
-  return trsqrt(tmax(s, T(kMinval)));
+HD T norm_inv(const Ctx<T>& c, int64_t x, int n) {
+  const T* const w = c.w.p;
+  return trsqrt(tmax(Warp::sum(n, [&](int r) { return w[x + r] * w[x + r]; }), T(kMinval)));
 }
 
 // APGD on the Jacobi-scaled dual; leaves the scaled solution g in S.f
 // (the force is g * inv_s), writes the carried warm start (fw) and probe (cwv).
+// Lanes over rows; the norms, the CW maximum and the restart sum are warp
+// reductions, so every lane holds the same step, momentum and restart flag.
 template <typename T>
 HD void dual_solve(const Ctx<T>& c) {
-  const Lane<T> w = c.w;
-  const int nv = c.s.nv, ne = c.s.nefc, nlim = c.s.nlim, nc = c.s.ncon;
-  for (int r = 0; r < ne; ++r) {
+  T* const w = c.w.p;
+  const int nv = c.s.nv, ne = c.s.nefc, nlim = c.s.nlim, nc = c.s.ncon, ld = c.S.jld;
+  Warp::for_each(ne, [&](int r) {
     const T is = trsqrt(tmax(w[c.S.diag + r] + w[c.S.reg + r], T(kMinval)));
     w[c.S.invs + r] = is;
-    for (int v = 0; v < nv; ++v) w[c.S.J + r * nv + v] = w[c.S.J + r * nv + v] * is;
+    for (int v = 0; v < nv; ++v) w[c.S.J + r * ld + v] = w[c.S.J + r * ld + v] * is;
     w[c.S.reg + r] = w[c.S.reg + r] * is * is;
     w[c.S.bvec + r] = w[c.S.bvec + r] * is;
-  }
-  for (int ci = 0; ci < (c.s.pyramidal ? 0 : nc); ++ci) {
+  });
+  Warp::for_each(c.s.pyramidal ? 0 : nc, [&](int ci) {
     const T mu = c.mf[c.L.fc + CF * ci];
     w[c.S.muc + ci] = mu * w[c.S.invs + nlim + ci] / tmax(w[c.S.invs + nlim + nc + ci], T(kMinval));
-  }
+  });
   // Collatz-Wielandt bound from one |A| apply on the carried probe, or on a
   // cold one after three normalised warm-up applies from ones
   if (c.s.cold) {
-    for (int r = 0; r < ne; ++r) w[c.S.vv + r] = T(1);
+    Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = T(1); });
     for (int k = 0; k < 3; ++k) {
       apply_op(c, c.S.vv, c.S.bv, true);
-      const T n = lane_norm_inv(w, c.S.bv, ne);
-      for (int r = 0; r < ne; ++r) w[c.S.vv + r] = w[c.S.bv + r] * n;
+      const T n = norm_inv(c, c.S.bv, ne);
+      Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = w[c.S.bv + r] * n; });
     }
   } else {
-    const T nin = lane_norm_inv(w, c.S.cwv, ne);
-    for (int r = 0; r < ne; ++r) w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7));
+    const T nin = norm_inv(c, c.S.cwv, ne);
+    Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7)); });
   }
   apply_op(c, c.S.vv, c.S.bv, true);
-  T L = T(-kBig);
-  for (int r = 0; r < ne; ++r) L = tmax(L, w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)));
-  const T nout = lane_norm_inv(w, c.S.bv, ne);
-  for (int r = 0; r < ne; ++r) w[c.S.cwv + r] = w[c.S.bv + r] * nout;
+  const T L = Warp::max(ne, [&](int r) { return w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)); }, T(-kBig));
+  const T nout = norm_inv(c, c.S.bv, ne);
+  Warp::for_each(ne, [&](int r) { w[c.S.cwv + r] = w[c.S.bv + r] * nout; });
   const T step = T(1) / tmax(L, T(kMinval));
 
-  for (int r = 0; r < ne; ++r) w[c.S.f + r] = w[c.S.fw + r] / tmax(w[c.S.invs + r], T(kMinval));
+  Warp::for_each(ne, [&](int r) { w[c.S.f + r] = w[c.S.fw + r] / tmax(w[c.S.invs + r], T(kMinval)); });
   project(c, c.S.f);
-  for (int r = 0; r < ne; ++r) w[c.S.y + r] = w[c.S.f + r];
+  Warp::for_each(ne, [&](int r) { w[c.S.y + r] = w[c.S.f + r]; });
   T tk = T(1);
   for (int it = 0; it < c.s.iterations; ++it) {
     apply_op(c, c.S.y, c.S.grad, false);
-    for (int r = 0; r < ne; ++r) {
+    Warp::for_each(ne, [&](int r) {
       w[c.S.grad + r] = w[c.S.grad + r] + w[c.S.bvec + r];
       w[c.S.fnew + r] = w[c.S.y + r] - step * w[c.S.grad + r];
-    }
+    });
     project(c, c.S.fnew);
     const T t_new = T(0.5) * (T(1) + tsqrt(T(1) + T(4) * tk * tk));
     const T mom = (tk - T(1)) / t_new;
-    T rs = T(0);
-    for (int r = 0; r < ne; ++r) rs = rs + w[c.S.grad + r] * (w[c.S.fnew + r] - w[c.S.f + r]);
+    const T rs = Warp::sum(ne, [&](int r) { return w[c.S.grad + r] * (w[c.S.fnew + r] - w[c.S.f + r]); });
     const bool restart = rs > T(0);
-    for (int r = 0; r < ne; ++r) {
+    Warp::for_each(ne, [&](int r) {
       const T fn = w[c.S.fnew + r];
       w[c.S.y + r] = restart ? fn : fn + mom * (fn - w[c.S.f + r]);
       w[c.S.f + r] = fn;
-    }
+    });
     tk = restart ? T(1) : t_new;
   }
-  for (int r = 0; r < ne; ++r) w[c.S.fw + r] = w[c.S.f + r] * w[c.S.invs + r];
+  Warp::for_each(ne, [&](int r) { w[c.S.fw + r] = w[c.S.f + r] * w[c.S.invs + r]; });
 }
 
 template <typename T>
@@ -335,40 +347,9 @@ HD void quat_integrate(T* q, const T* om, T h) {
   for (int k = 0; k < 4; ++k) q[k] = o[k] / n;
 }
 
-// One physics step in place on this rollout's (qpos, qvel, fw, cwv).
+// The position update of every joint (lane 0).
 template <typename T>
-HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
-  const Lane<T> w = c.w;
-  const Lane<T> qpos = w.at(c.S.qpos), qvel = w.at(c.S.qvel);
-  const int nv = c.s.nv;
-  const T h = c.mf[0];
-  kinematics(c, qpos);
-  com_quantities(c);
-  crb_mass_matrix(c);
-  velocity_and_bias(c, qvel, c.mf + 1);
-  smooth_force(c, qpos, qvel, ctrl);
-  island_inverse(c, c.S.M, c.S.Minv);
-  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
-  sensors(c, qpos, qvel, sens_out);
-  for (int v = 0; v < nv; ++v) w[c.S.qacc + v] = w[c.S.qacc_s + v];
-  if (c.s.nefc > 0) {
-    narrowphase(c);
-    assemble(c, qpos, qvel);
-    dual_solve(c);
-    jt_vec(c, c.S.f, false);
-    island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
-    for (int v = 0; v < nv; ++v) w[c.S.qacc + v] = w[c.S.qacc_s + v] + w[c.S.tv2 + v];
-  }
-  // implicit-in-velocity damping: qvel += (M + h D)^-1 (h M qacc)
-  for (int i = 0; i < nv; ++i) {
-    T acc = T(0);
-    for (int k = 0; k < nv; ++k) acc = acc + w[c.S.M + i * nv + k] * w[c.S.qacc + k];
-    w[c.S.tv1 + i] = h * acc;
-    w[c.S.M + i * nv + i] = w[c.S.M + i * nv + i] + h * c.dof_f(i)[2];
-  }
-  island_inverse(c, c.S.M, c.S.Minv);
-  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
-  for (int v = 0; v < nv; ++v) qvel[v] = qvel[v] + w[c.S.tv2 + v];
+HD void integrate_pos(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, T h) {
   for (int j = 0; j < c.s.njnt; ++j) {
     const int* ji = c.jnt_i(j);
     const int jtype = ji[0], qadr = ji[1], dadr = ji[2];
@@ -390,57 +371,104 @@ HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
   }
 }
 
-// The context of rollout b: model, sizes and its slice of the scratch.
+// One physics step in place on this rollout's (qpos, qvel, fw, cwv); every
+// lane of the warp calls it.
 template <typename T>
-HD Ctx<T> lane_ctx(const JtSizes& s, const int* mi, const T* mf, T* scratch, int b) {
+HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
+  T* const w = c.w.p;
+  const Lane<T> qpos = c.w.at(c.S.qpos), qvel = c.w.at(c.S.qvel);
+  const int nv = c.s.nv;
+  const T h = c.mf[0];
+  Warp::single([&] {
+    kinematics(c, qpos);
+    com_quantities(c);
+    crb_mass_matrix(c);
+    velocity_and_bias(c, qvel, c.mf + 1);
+    smooth_force(c, qpos, qvel, ctrl);
+  });
+  island_inverse(c, c.S.M, c.S.Minv);
+  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
+  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });
+  if (c.s.nefc > 0) {
+    narrowphase(c);
+    assemble(c, qpos, qvel);
+    dual_solve(c);
+    jt_vec(c, c.S.f, false);
+    island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+    Warp::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v] + w[c.S.tv2 + v]; });
+  } else {
+    Warp::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v]; });
+  }
+  // implicit-in-velocity damping: qvel += (M + h D)^-1 (h M qacc); lane i
+  // reads row i of M, then adds to its own diagonal entry
+  Warp::for_each(nv, [&](int i) {
+    T acc = T(0);
+    for (int k = 0; k < nv; ++k) acc = acc + w[c.S.M + i * nv + k] * w[c.S.qacc + k];
+    w[c.S.tv1 + i] = h * acc;
+    w[c.S.M + i * nv + i] = w[c.S.M + i * nv + i] + h * c.dof_f(i)[2];
+  });
+  island_inverse(c, c.S.M, c.S.Minv);
+  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+  Warp::for_each(nv, [&](int v) { qvel[v] = qvel[v] + w[c.S.tv2 + v]; });
+  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });
+}
+
+// The context of one rollout: model, sizes and its scratch (`work`, stride 1).
+template <typename T>
+HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work) {
   Ctx<T> c;
   c.s = s;
   c.L = make_layout(s);
   c.S = make_scratch(s);
   c.mi = mi;
   c.mf = mf;
-  c.w = Lane<T>{scratch + b, s.B};
+  c.w = Lane<T>{work, 1};
   return c;
 }
 
 // Load rollout b's start state, warm-start forces (zeros when f0 is null)
 // and a probe of ones.
 template <typename T>
-HD void lane_init(const Ctx<T>& c, const T* qpos0, const T* qvel0, const T* f0, int b) {
-  const Lane<T> w = c.w;
+HD void rollout_init(const Ctx<T>& c, const T* qpos0, const T* qvel0, const T* f0, int b) {
+  T* const w = c.w.p;
   const int64_t B = c.s.B;
-  for (int k = 0; k < c.s.nq; ++k) w[c.S.qpos + k] = qpos0[k * B + b];
-  for (int k = 0; k < c.s.nv; ++k) w[c.S.qvel + k] = qvel0[k * B + b];
-  for (int r = 0; r < c.s.nefc; ++r) {
+  Warp::for_each(c.s.nq, [&](int k) { w[c.S.qpos + k] = qpos0[k * B + b]; });
+  Warp::for_each(c.s.nv, [&](int k) { w[c.S.qvel + k] = qvel0[k * B + b]; });
+  Warp::for_each(c.s.nefc, [&](int r) {
     w[c.S.fw + r] = f0 ? f0[r * B + b] : T(0);
     w[c.S.cwv + r] = T(1);
-  }
+  });
 }
 
 // Write rollout b's qpos and qvel as step t of the (T, n, B) outputs.
 template <typename T>
-HD void lane_store_state(const Ctx<T>& c, T* oq, T* ov, int t, int b) {
+HD void store_state(const Ctx<T>& c, T* oq, T* ov, int t, int b) {
+  const T* const w = c.w.p;
   const int64_t B = c.s.B;
-  for (int k = 0; k < c.s.nq; ++k) oq[((int64_t)t * c.s.nq + k) * B + b] = c.w[c.S.qpos + k];
-  for (int k = 0; k < c.s.nv; ++k) ov[((int64_t)t * c.s.nv + k) * B + b] = c.w[c.S.qvel + k];
+  const int nq = c.s.nq, nv = c.s.nv;
+  Warp::for_each(nq + nv, [&](int k) {
+    if (k < nq) oq[((int64_t)t * nq + k) * B + b] = w[c.S.qpos + k];
+    else ov[((int64_t)t * nv + k - nq) * B + b] = w[c.S.qvel + k - nq];
+  });
 }
 
-// The whole T-step rollout of rollout b (the body of the CUDA kernel, and of
-// the host twin's loop over b). Arrays are batch-last; see fused_rollout.py.
+// The whole T-step rollout of rollout b, run by the 32 lanes of one warp on
+// the scratch `work` (the body of the CUDA kernels and of the host twin's loop
+// over b). Global arrays are batch-last; see fused_rollout.py.
 template <typename T>
-HD void rollout_lane(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0,
-                     const T* ctrl, const T* f0, T* oq, T* ov, T* os, T* of0, T* scratch, int b) {
-  const Ctx<T> c = lane_ctx(s, mi, mf, scratch, b);
+HD void rollout(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
+                const T* f0, T* oq, T* ov, T* os, T* of0, T* work, int b) {
+  const Ctx<T> c = rollout_ctx(s, mi, mf, work);
   const int64_t B = s.B;
-  lane_init(c, qpos0, qvel0, f0, b);
+  rollout_init(c, qpos0, qvel0, f0, b);
   for (int t = 0; t < s.T; ++t) {
     const Lane<const T> ctrl_t{ctrl + (int64_t)t * s.nu_ * B + b, B};
     const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
-    for (int k = 0; k < s.ns_; ++k) sens_t[k] = T(0);
+    Warp::for_each(s.ns_, [&](int k) { sens_t[k] = T(0); });
     for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl_t, sens_t);
-    lane_store_state(c, oq, ov, t, b);
+    store_state(c, oq, ov, t, b);
     if (t == 0) {
-      for (int r = 0; r < s.nefc_; ++r) of0[r * B + b] = r < s.nefc ? c.w[c.S.fw + r] : T(0);
+      Warp::for_each(s.nefc_, [&](int r) { of0[r * B + b] = r < s.nefc ? work[c.S.fw + r] : T(0); });
     }
   }
 }

@@ -10,6 +10,12 @@ semantics. ``rollout_lanes`` is the public entry with the JAX package's
 batch-first layout. ``physics_step`` wraps the single-step kernel (the port of
 ``pallas_step.py::_build_pallas_step``): one step with a cold probe, whose
 plain version is ``step_l(..., cw_v=None)``.
+
+The kernels run one warp per rollout with the rollout's whole scratch
+(``jt_scratch_per_lane`` elements) in dynamic shared memory. The wrapper
+computes those bytes and raises a ``RuntimeError`` naming them and the card's
+per-block opt-in limit when a model does not fit; there is no fallback. Inputs
+and outputs are batch-last, ``(T, n, B)``.
 """
 
 from __future__ import annotations
@@ -215,7 +221,8 @@ def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | Non
 
 
 def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> int:
-    """Assert the packed model matches the library's layout; return scratch elements per lane."""
+    """Assert the packed model matches the library's layout; return the
+    scratch elements of one rollout."""
     nint, nflt = ctypes.c_int(), ctypes.c_int()
     lib.jt_model_sizes(ctypes.byref(sizes), ctypes.byref(nint), ctypes.byref(nflt))
     pk = pack_model(m)
@@ -248,13 +255,48 @@ def model_tensors(m: PhysicsModel, dev, dtype) -> tuple:
     return mt
 
 
+def smem_limit(lib) -> int:
+    """The current card's opt-in limit of shared memory per block, in bytes
+    (``lib`` is the CUDA library)."""
+    limit = ctypes.c_int()
+    err = lib.jt_smem_optin(ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"reading the shared-memory limit failed: {lib.jt_error_string(err).decode()}")
+    return limit.value
+
+
+def check_smem(nbytes: int, limit: int, name: str) -> None:
+    """Raise unless one block's ``nbytes`` of dynamic shared memory fit ``limit``."""
+    if nbytes > limit:
+        raise RuntimeError(
+            f"{name}: one rollout's scratch needs {nbytes} bytes of shared memory per block, more than this "
+            f"card's opt-in limit of {limit} bytes; the model is too large for the one-warp kernel"
+        )
+
+
+def rollout_blocks_per_sm(m: PhysicsModel, dtype: torch.dtype, cold: bool = False) -> tuple[int, int]:
+    """(shared-memory bytes per block, resident blocks per SM) of the rollout
+    kernel (``cold``: the single-step kernel) for ``m`` on the current card."""
+    from judo_tpu_torch import _build
+
+    lib = _build.load("cuda")
+    nbytes = _check_layout(lib, m, _sizes(m, 1, 1, 1, None)) * torch.empty((), dtype=dtype).element_size()
+    blocks = ctypes.c_int()
+    err = lib.jt_rollout_blocks_per_sm(int(cold), int(dtype == torch.float64), nbytes, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: {lib.jt_error_string(err).decode()}")
+    return nbytes, blocks.value
+
+
 def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False):
     """Run the library's fused rollout (or, with ``cold``, the single-step
     kernel) on contiguous tensors; returns the outputs."""
     B, T = qpos.shape[-1], ctrl.shape[0]
     sizes = _sizes(m, B, T, substeps, iterations, cold)
-    per_lane = _check_layout(lib, m, sizes)
+    per_rollout = _check_layout(lib, m, sizes)
     dev, dtype = qpos.device, qpos.dtype
+    if qpos.is_cuda:
+        check_smem(per_rollout * qpos.element_size(), smem_limit(lib), "physics_step" if cold else "fused_rollout")
     mi, mf = model_tensors(m, dev, dtype)
     c = pack_model(m)["counts"]
     ins = [x.contiguous() for x in (qpos, qvel, ctrl, f0)]
@@ -262,9 +304,8 @@ def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=Fal
     ov = torch.empty((T, m.nv, B), dtype=dtype, device=dev)
     os_ = torch.empty((T, c["ns_"], B), dtype=dtype, device=dev)
     of0 = torch.empty((c["nefc_"], B), dtype=dtype, device=dev)
-    scratch = torch.empty((per_lane * B,), dtype=dtype, device=dev)
     fn = lib.jt_fused_rollout_f64 if dtype == torch.float64 else lib.jt_fused_rollout_f32
-    args = [mi, mf, *ins, oq, ov, os_, of0, scratch]
+    args = [mi, mf, *ins, oq, ov, os_, of0]
     err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], stream)
     if err != 0:
         raise RuntimeError(f"fused_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
@@ -358,8 +399,9 @@ def fused_rollout_host_twin(
     m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor, f0: torch.Tensor,
     substeps: int = 1, iterations: int | None = None,
 ):
-    """The kernel's own arithmetic built with g++ and run on the CPU, one
-    rollout after another (csrc/fused_rollout_host.cpp). For tests."""
+    """The kernel's own code built with g++ and run on the CPU, one rollout
+    after another, with the warp's 32 lanes played in one thread in the
+    card's order (csrc/fused_rollout_host.cpp). For tests."""
     _check_inputs(m, qpos, qvel, ctrl, f0)
     from judo_tpu_torch import _build
 

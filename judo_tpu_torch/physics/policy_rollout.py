@@ -8,8 +8,9 @@ the kernel or raises; for CPU tensors it runs
 ``policy_rollout_lanes_reference``, the plain PyTorch version:
 ``spot_policy_step_l`` in a Python loop over the policy ticks, forces cold at
 the first tick and the probe carried. ``policy_rollout_lanes`` is the public
-entry with the JAX package's batch-first layout. Rollouts are not padded: the
-kernel masks the ragged last warp.
+entry with the JAX package's batch-first layout. The kernel runs one warp per
+rollout with its scratch in dynamic shared memory (see ``fused_rollout.py``:
+a model that does not fit raises), so rollouts are not padded.
 """
 
 from __future__ import annotations
@@ -20,7 +21,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from judo_tpu_torch.physics.fused_rollout import _check_layout, _cuda_lib, _sizes, model_tensors, pack_model
+from judo_tpu_torch.physics.fused_rollout import (
+    _check_layout,
+    _cuda_lib,
+    _sizes,
+    check_smem,
+    model_tensors,
+    pack_model,
+    smem_limit,
+)
 from judo_tpu_torch.physics.model import PhysicsModel, num_constraint_rows
 from judo_tpu_torch.tasks.spot import spot_constants as sc
 from judo_tpu_torch.tasks.spot.policy import ACTIVATIONS, SpotPolicy, spot_policy_step_l
@@ -66,19 +75,39 @@ def policy_rollout_lanes_reference(
 def pack_policy(policy: SpotPolicy, device, dtype) -> tuple:
     """The policy as the kernel reads it (layouts of csrc/jt_policy.cuh), on
     ``device`` in ``dtype``, made once per device and dtype: an int32 array
-    (layer dims and activations, joint-order permutations) and a scalar array
-    (default joint pose, then each layer's [W^T | b] block row-major)."""
+    (layer dims and activations, joint-order permutations), a scalar array
+    (default joint pose, then each layer's weights input-major, element
+    (i, r) of an in x out layer at i * out + r, then its biases) and the widest
+    layer. The input-major order lets the lanes of a warp, one output neuron
+    each, read consecutive weights."""
     key = (str(device), dtype)
     if key not in policy._packed:
         dims = policy.dims
         ints = [len(policy.layers), *dims, *(ACTIVATIONS[a] for a in policy.activations),
                 *sc.MUJOCO_TO_ORBIT, *sc.ORBIT_TO_MUJOCO_LEGS]
-        blocks = [torch.cat([lin.weight, lin.bias[:, None]], 1).reshape(-1).double().cpu() for lin in policy.layers]
+        blocks = [torch.cat([lin.weight.T, lin.bias[None]], 0).reshape(-1).double().cpu() for lin in policy.layers]
         scalars = torch.cat([torch.as_tensor(sc.DEFAULT_JOINT_POS, dtype=torch.float64), *blocks])
         policy._packed[key] = (
             torch.as_tensor(np.asarray(ints, np.int32)).to(device), scalars.to(device=device, dtype=dtype), max(dims)
         )
     return policy._packed[key]
+
+
+def policy_blocks_per_sm(m: PhysicsModel, policy: SpotPolicy, dtype: torch.dtype) -> tuple[int, int]:
+    """(shared-memory bytes per block, resident blocks per SM) of the policy
+    rollout kernel for ``m`` and ``policy`` on the current card."""
+    from judo_tpu_torch import _build
+
+    lib = _build.load("cuda")
+    sizes = _sizes(m, 1, 1, 1, None)
+    _check_layout(lib, m, sizes)
+    nbytes = int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), max(policy.dims)))
+    nbytes *= torch.empty((), dtype=dtype).element_size()
+    blocks = ctypes.c_int()
+    err = lib.jt_policy_blocks_per_sm(int(dtype == torch.float64), nbytes, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: {lib.jt_error_string(err).decode()}")
+    return nbytes, blocks.value
 
 
 def _check_inputs(m: PhysicsModel, policy: SpotPolicy, qpos, qvel, pout0, cmds):
@@ -105,15 +134,17 @@ def _launch(lib, m, policy, qpos, qvel, pout0, cmds, substeps, iterations, strea
     mi, mf = model_tensors(m, dev, dtype)
     pi, pf, maxw = pack_policy(policy, dev, dtype)
     c = pack_model(m)["counts"]
+    if qpos.is_cuda:
+        per_rollout = int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), maxw))
+        check_smem(per_rollout * qpos.element_size(), smem_limit(lib), "fused_policy_rollout")
     ins = [x.contiguous() for x in (qpos, qvel, pout0, cmds)]
     oq = torch.empty((T, m.nq, B), dtype=dtype, device=dev)
     ov = torch.empty((T, m.nv, B), dtype=dtype, device=dev)
     os_ = torch.empty((T, c["ns_"], B), dtype=dtype, device=dev)
     op = torch.empty((T, NPOUT, B), dtype=dtype, device=dev)
-    scratch = torch.empty((int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), maxw)) * B,), dtype=dtype, device=dev)
     fn = lib.jt_fused_policy_rollout_f64 if dtype == torch.float64 else lib.jt_fused_policy_rollout_f32
-    args = [mi, mf, pi, pf, *ins, oq, ov, os_, op, scratch]
-    err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], stream)
+    args = [mi, mf, pi, pf, *ins, oq, ov, os_, op]
+    err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], maxw, stream)
     if err != 0:
         raise RuntimeError(f"fused_policy_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
     return oq, ov, os_, op
@@ -149,8 +180,9 @@ fused_policy_rollout.launches = 0
 
 
 def fused_policy_rollout_host_twin(m, policy, qpos, qvel, pout0, cmds, substeps: int = 2, iterations=None):
-    """The kernel's own arithmetic built with g++ and run on the CPU, one
-    rollout after another (csrc/fused_policy_rollout_host.cpp). For tests."""
+    """The kernel's own code built with g++ and run on the CPU, one rollout
+    after another, with the warp's 32 lanes played in one thread in the
+    card's order (csrc/fused_policy_rollout_host.cpp). For tests."""
     _check_inputs(m, policy, qpos, qvel, pout0, cmds)
     from judo_tpu_torch import _build
 

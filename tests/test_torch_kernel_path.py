@@ -66,24 +66,41 @@ def test_rollout_lanes_leap_matches_jax():
     np.testing.assert_allclose(out.efc0.numpy(), jefc0, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("scene", ["leap", "cartpole"])
+@pytest.mark.parametrize("scene", ["leap", "cartpole", "leap_b1"])
 def test_host_twin_matches_plain_version(scene):
-    """The CUDA kernel's step body, compiled by g++, against the plain
-    PyTorch version: 3 steps, 4 rollouts, float64."""
-    if scene == "leap":
+    """The CUDA kernel's step body, compiled by g++ with the warp's 32 lanes
+    played in one thread, against the plain PyTorch version: 3 steps,
+    float64; 4 rollouts, or 1 (leap_b1). Cartpole has 2 constraint rows, fewer
+    than the lanes, so most lanes idle in every row pass."""
+    B = 1 if scene == "leap_b1" else 4
+    if scene.startswith("leap"):
         m = put_model(mujoco.MjModel.from_xml_path(leap_cube_xml_path()), dtype=np.float64, solver_iterations=8)
-        qp, qv, ct = _leap_batch(4, 3, seed=3)
+        qp, qv, ct = _leap_batch(B, 3, seed=3)
     else:
         m = put_model(mujoco.MjModel.from_xml_string(CARTPOLE), dtype=np.float64)
         rng = np.random.default_rng(4)
-        qp, qv, ct = np.tile([1.7, 2.9], (4, 1)), rng.standard_normal((4, 2)), rng.standard_normal((4, 3, 1))
+        qp, qv, ct = np.tile([1.7, 2.9], (B, 1)), rng.standard_normal((B, 2)), rng.standard_normal((B, 3, 1))
     nefc = max(num_constraint_rows(m), 1)
-    f0 = torch.tensor(np.abs(0.05 * np.random.default_rng(5).standard_normal((nefc, 4))))
+    f0 = torch.tensor(np.abs(0.05 * np.random.default_rng(5).standard_normal((nefc, B))))
     args = (torch.tensor(qp.T.copy()), torch.tensor(qv.T.copy()), torch.tensor(ct.transpose(1, 2, 0).copy()), f0)
     ref = fr.rollout_lanes_reference(m, *args, 1, 8)
     twin = fr.fused_rollout_host_twin(m, *args, 1, 8)
     for name, a, b in zip(("qpos", "qvel", "sensors", "efc0"), ref, twin):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-9, rtol=0, err_msg=name)
+
+
+def test_shared_memory_limit_raises():
+    """A rollout whose scratch exceeds the card's per-block limit raises,
+    naming the bytes and the limit (leap in float64 needs more than the
+    48 KB a block gets without opting in)."""
+    from judo_tpu_torch import _build
+
+    m = put_model(mujoco.MjModel.from_xml_path(leap_cube_xml_path()), dtype=np.float64, solver_iterations=8)
+    nbytes = fr._check_layout(_build.load("host"), m, fr._sizes(m, 1, 1, 1, None)) * 8
+    assert 48 * 1024 < nbytes < 227 * 1024
+    fr.check_smem(nbytes, 227 * 1024, "fused_rollout")
+    with pytest.raises(RuntimeError, match=rf"{nbytes} bytes .* limit of 49152 bytes"):
+        fr.check_smem(nbytes, 48 * 1024, "fused_rollout")
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_checks_shapes():

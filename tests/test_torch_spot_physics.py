@@ -36,6 +36,7 @@ from judo_tpu_torch.tasks.spot import spot_constants as sc
 from judo_tpu_torch.tasks.spot.spot_base import _spot_planner_pairs
 from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
 
+from .test_physics.test_parity import CARTPOLE
 from .test_torch_physics import _random_frames
 
 R = 3
@@ -140,16 +141,16 @@ def test_dual_solve_orthant_matches_jax():
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-9, rtol=0)
 
 
-def _policy_inputs(nv, T, seed):
+def _policy_inputs(nv, T, seed, B=R):
     rng = np.random.default_rng(seed)
-    qp = np.tile(STAND, (R, 1))
-    qv = 0.05 * rng.standard_normal((R, nv))
-    pout = 0.3 * rng.standard_normal((R, 12))
-    cmds = np.zeros((R, T, 25))
-    cmds[..., :3] = 0.4 * rng.standard_normal((R, T, 3))
+    qp = np.tile(STAND, (B, 1))
+    qv = 0.05 * rng.standard_normal((B, nv))
+    pout = 0.3 * rng.standard_normal((B, 12))
+    cmds = np.zeros((B, T, 25))
+    cmds[..., :3] = 0.4 * rng.standard_normal((B, T, 3))
     cmds[..., 3:10] = sc.ARM_STOWED_POS
     cmds[..., 24] = sc.STANDING_HEIGHT_CMD
-    cmds[1, :, 13:16] = 0.3  # one rollout overrides its front-right leg
+    cmds[1 % B, :, 13:16] = 0.3  # one rollout overrides its front-right leg
     return qp, qv, pout, cmds
 
 
@@ -173,7 +174,8 @@ def test_policy_rollout_reference_matches_jax():
 
 
 def test_policy_rollout_host_twin_matches_plain_version():
-    """The policy kernel's body, compiled by g++, against the plain version."""
+    """The policy kernel's body, compiled by g++ with the warp's 32 lanes
+    played in one thread, against the plain version."""
     task = SpotNavigate(device="cpu", dtype=torch.float64)
     qp, qv, pout, cmds = _policy_inputs(task.nv, 3, seed=4)
     args = (torch.tensor(qp.T.copy()), torch.tensor(qv.T.copy()), torch.tensor(pout.T.copy()),
@@ -190,28 +192,71 @@ def test_policy_rollout_host_twin_matches_plain_version():
         pr.fused_policy_rollout(task.planning_model, task.policy, *args[:3], args[3][:, :24], 2, 8)
 
 
-def _step_inputs(scene):
+@pytest.mark.parametrize("B", [1, 33])
+def test_policy_rollout_host_twin_batch_sizes(B):
+    """The policy kernel's body against the plain version at one rollout and
+    at 33, one more than a warp: 2 ticks of 2 steps, float64."""
+    task = SpotNavigate(device="cpu", dtype=torch.float64)
+    qp, qv, pout, cmds = _policy_inputs(task.nv, 2, seed=13, B=B)
+    args = (torch.tensor(qp.T.copy()), torch.tensor(qv.T.copy()), torch.tensor(pout.T.copy()),
+            torch.tensor(cmds.transpose(1, 2, 0).copy()))
+    ref = pr.policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
+    twin = pr.fused_policy_rollout_host_twin(task.planning_model, task.policy, *args, 2, 8)
+    for name, a, b in zip(("qpos", "qvel", "sensors", "pout"), ref, twin):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-9, rtol=0, err_msg=name)
+
+
+def test_policy_pack_is_input_major():
+    """The kernel's pack of the MLP (each layer's weights input-major, element
+    (i, r) at i * out + r, then its biases) gives the nn.Module's layer
+    outputs on a random input, float64."""
+    from judo_tpu_torch.tasks.spot.policy import activate
+
+    pol = SpotNavigate(device="cpu", dtype=torch.float64).policy
+    _, pf, maxw = pr.pack_policy(pol, "cpu", torch.float64)
+    assert maxw == max(pol.dims) == 512
+    flat = pf.numpy()[len(sc.DEFAULT_JOINT_POS) :]
+    x = torch.tensor(np.random.default_rng(14).standard_normal((pol.dims[0], 1)))
+    h, o = x, 0
+    for lin, act, ni, no in zip(pol.layers, pol.activations, pol.dims[:-1], pol.dims[1:]):
+        W, b = flat[o : o + ni * no].reshape(ni, no), flat[o + ni * no : o + (ni + 1) * no]
+        o += (ni + 1) * no
+        ours = activate(act, torch.tensor(W.T) @ h + torch.tensor(b)[:, None])
+        h = activate(act, lin.weight.double() @ h + lin.bias.double()[:, None])
+        np.testing.assert_allclose(ours.numpy(), h.numpy(), atol=1e-12, rtol=0)
+    assert o == flat.size
+    np.testing.assert_allclose(h[:, 0].numpy(), pol(x.T)[0].numpy(), atol=1e-12, rtol=0)
+
+
+def _step_inputs(scene, B=R):
     if scene == "leap":
         m = put_model(mujoco.MjModel.from_xml_string(leap_cube_xml()), dtype=np.float64, solver_iterations=8)
         rng = np.random.default_rng(9)
-        qp = np.tile(QPOS_REST, (R, 1)).T.copy()
-        qp[:3] += 5e-4 * rng.standard_normal((3, R))
-        ctrl = QPOS_REST[7:][:, None] + 0.1 * rng.standard_normal((16, R))
-        qv = 0.05 * rng.standard_normal((m.nv, R))
+        qp = np.tile(QPOS_REST, (B, 1)).T.copy()
+        qp[:3] += 5e-4 * rng.standard_normal((3, B))
+        ctrl = QPOS_REST[7:][:, None] + 0.1 * rng.standard_normal((16, B))
+        qv = 0.05 * rng.standard_normal((m.nv, B))
+    elif scene == "cartpole":
+        m = put_model(mujoco.MjModel.from_xml_string(CARTPOLE), dtype=np.float64)
+        rng = np.random.default_rng(15)
+        qp = np.stack([1.85 + 0.01 * rng.standard_normal(B), 2.9 + rng.standard_normal(B)])  # past the cart's limit
+        qv, ctrl = rng.standard_normal((2, B)), rng.standard_normal((1, B))
     else:
         m = SpotNavigate(device="cpu", dtype=torch.float64).planning_model
-        qp, qv, _, _ = _policy_inputs(m.nv, 1, seed=10)
+        qp, qv, _, _ = _policy_inputs(m.nv, 1, seed=10, B=B)
         qp, qv = qp.T.copy(), qv.T.copy()
-        ctrl = np.tile(TARGETS[:, None], (1, R))
-    f = np.abs(0.05 * np.random.default_rng(11).standard_normal((num_constraint_rows(m), R)))
+        ctrl = np.tile(TARGETS[:, None], (1, B))
+    f = np.abs(0.05 * np.random.default_rng(11).standard_normal((num_constraint_rows(m), B)))
     return m, [torch.tensor(x) for x in (qp, qv, ctrl, f)]
 
 
-@pytest.mark.parametrize("scene", ["leap", "spot"])
+@pytest.mark.parametrize("scene", ["leap", "spot", "spot_b33", "cartpole"])
 def test_physics_step_host_twin_matches_plain_version(scene):
-    """The single-step kernel's body (cold probe), compiled by g++, against
-    step_l(cw_v=None)."""
-    m, args = _step_inputs(scene)
+    """The single-step kernel's body (cold probe), compiled by g++ with the
+    warp's 32 lanes played in one thread, against step_l(cw_v=None): 3
+    rollouts, 33 for spot_b33; cartpole's 2 constraint rows leave most lanes
+    idle."""
+    m, args = _step_inputs(scene.removesuffix("_b33"), 33 if scene.endswith("_b33") else R)
     ref = fr.physics_step_reference(m, *args, 8)
     plain = ls.step_l(m, *args, 8, cw_v=None)
     np.testing.assert_array_equal(ref[1].numpy(), plain.qvel.numpy())
