@@ -2,14 +2,16 @@
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 chip_profile.py stages   # per-stage split of K1 (leap) and K2 (Spot)
+    python3 chip_profile.py stages   # per-stage split of K1 (leap, fr3_pick) and K2 (Spot)
     python3 chip_profile.py unroll   # the kernels against copies with loops unrolled or not
     python3 chip_profile.py horizon  # full-horizon kernel vs plain, and whole solve sequences
+    python3 chip_profile.py inline   # the kernels against copies inlined otherwise
 
-stages and unroll copy judo_tpu_torch/csrc into build/profile/<variant>/,
-patch the copy (the committed sources stay as they are), build it with nvcc
-and run it at the main paths' shapes in float32: leap B 320, T 100; Spot
-R 24, T 100 policy ticks x 2 physics steps.
+stages, unroll and inline copy judo_tpu_torch/csrc into
+build/profile/<variant>/, patch the copy (the committed sources stay as they
+are), build it with nvcc and run it at the paths' shapes in float32: leap
+B 320, T 100; Spot R 24, T 100 policy ticks x 2 physics steps; fr3_pick B 64,
+T 252.
 
 - stages: lane 0 of each warp reads clock64 between the stages of a physics
   step (after a __syncwarp, so a stage ends when its slowest lane does) and
@@ -19,6 +21,11 @@ R 24, T 100 policy ticks x 2 physics steps.
   MLP's inner loop left rolled and one with the inner loops of the J passes
   (J^T x over rows, J y over dofs) unrolled by 8, in the order base, A, B, B,
   A, base within one process.
+- inline: times the checkout's kernels (and K1 on fr3_pick, B 64, T 252),
+  whose physics step is forced inline and whose narrowphase dispatch is a
+  call, against a copy with the step left to the compiler (A), one with the
+  dispatch inlined (B) and one with both (C), in the order base, A, B, C, C,
+  B, A, base within one process, with each build's registers and stack.
 - horizon: K1 (leap, B 64) and K2 (Spot, R 24) against their plain versions
   over the full T 100, float64 and float32; then chip_smoke.py's two solve
   sequences (warm-up and timed solves on the same perturbed states) in
@@ -39,7 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 STAGES = ["smooth dynamics (lane 0)", "M inverse + qacc_smooth", "sensors (lane 0)", "narrowphase", "assembly",
           "solve prep (scaling + CW bound)", "APGD iterations", "J^T f + qacc", "implicit damping + qvel",
-          "position update (lane 0)", "policy tick (obs + MLP + ctrl)"]
+          "position update (lane 0)", "policy tick (obs + MLP + ctrl)", "distance sensors"]
 
 CLOCK = '''#ifdef __CUDACC__
 static __device__ unsigned long long jt_stage_cycles[16];
@@ -92,6 +99,7 @@ PATCHES = {
          "  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n  clk.mark(1);\n"),
         ("jt_step.cuh", "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n",
          "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n  clk.mark(2);\n"),
+        ("jt_step.cuh", "  distance_sensors(c, sens_out);\n", "  distance_sensors(c, sens_out);\n  clk.mark(11);\n"),
         ("jt_step.cuh", "    narrowphase(c);\n    assemble(c, qpos, qvel);\n    dual_solve(c);\n",
          "    narrowphase(c);\n    clk.mark(3);\n    assemble(c, qpos, qvel);\n    clk.mark(4);\n"
          "    dual_solve(c, clk);\n    clk.mark(6);\n"),
@@ -102,6 +110,11 @@ PATCHES = {
          "    StageClock clk;\n    clk.start();\n    policy_tick(c, p, P, cmd_t);\n    clk.mark(10);\n"),
     ],
     "mlp rolled": [("jt_policy.cuh", MLP_PRAGMA + MLP_LOOP, MLP_LOOP)],
+    "step a call": [("jt_step.cuh", "HD_FORCEINLINE void step(", "HD void step(")],
+    "pair dispatch inlined": [("jt_collision.cuh", "HD_NOINLINE void pair_contacts(", "HD void pair_contacts(")],
+    "step a call, pair dispatch inlined": [("jt_step.cuh", "HD_FORCEINLINE void step(", "HD void step("),
+                                           ("jt_collision.cuh", "HD_NOINLINE void pair_contacts(",
+                                            "HD void pair_contacts(")],
     "J passes unrolled": [
         ("jt_step.cuh", "    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];",
          "#pragma unroll 8\n    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];"),
@@ -121,7 +134,7 @@ def use_sources(variant: str | None) -> None:
     if variant is None:
         _build.CSRC, _build.BUILD_DIR = csrc, ROOT / "build" / "judo_tpu_torch"
     else:
-        dst = ROOT / "build" / "profile" / variant.replace(" ", "_")
+        dst = ROOT / "build" / "profile" / variant.replace(",", "").replace(" ", "_")
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(csrc, dst)
         for name, old, new in PATCHES[variant]:
@@ -153,11 +166,17 @@ def main_shapes():
     f0 = torch.zeros((fr.num_constraint_rows(m), cs.B_MAIN), dtype=f32, device="cuda")
     task = SpotNavigate(device="cuda", dtype=f32)
     args = cs.spot_inputs(task, cs.R_SPOT, cs.T_FULL, seed=9, dtype=f32, device="cuda")
-    return {
+    shapes = {
         "K1": lambda: fr.fused_rollout(m, qp, qv, ct, f0, 1, 8),
         "K2": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8),
         "K2 policy only": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 0, 8),
     }
+    if hasattr(cs, "scene_inputs"):  # K1 on fr3_pick, where the checkout has it
+        m3 = cs.scene_model("fr3", f32)
+        qp3, qv3, ct3 = cs.scene_inputs("fr3", m3, 64, 252, seed=10, dtype=f32, device="cuda")
+        f3 = torch.zeros((fr.num_constraint_rows(m3), 64), dtype=f32, device="cuda")
+        shapes["K1 fr3"] = lambda: fr.fused_rollout(m3, qp3, qv3, ct3, f3, 1, 8)
+    return shapes
 
 
 def stages(card: str) -> None:
@@ -170,7 +189,8 @@ def stages(card: str) -> None:
     lib = _build.load("cuda")
     run = main_shapes()
     buf = (ctypes.c_ulonglong * 16)()
-    for kernel, tag, shape in (("K1", "rollout", "leap B 320 T 100"), ("K2", "policy", "spot R 24 T 100 x 2")):
+    for kernel, tag, shape in (("K1", "rollout", "leap B 320 T 100"), ("K2", "policy", "spot R 24 T 100 x 2"),
+                               ("K1 fr3", "rollout", "fr3_pick B 64 T 252")):
         read = getattr(lib, f"jt_stage_{tag}")
         run[kernel]()
         torch.cuda.synchronize()
@@ -191,12 +211,34 @@ def stages(card: str) -> None:
 def unroll(card: str) -> None:
     import chip_smoke as cs
 
-    reps = {"K1": 10, "K2": 5, "K2 policy only": 5}
+    reps = {"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}
     for variant in (None, "mlp rolled", "J passes unrolled", "J passes unrolled", "mlp rolled", None):
         use_sources(variant)
         run = main_shapes()
         times = ", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in run.items())
         print(f"unroll {variant or 'checkout'}: {times} f32 on {card}", flush=True)
+
+
+def inline(card: str) -> None:
+    import chip_smoke as cs
+
+    reps = {"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}
+    both = "step a call, pair dispatch inlined"
+    for variant in (None, "step a call", "pair dispatch inlined", both, both, "pair dispatch inlined", "step a call",
+                    None):
+        use_sources(variant)
+        run = main_shapes()
+        times = ", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in run.items())
+        print(f"inline {variant or 'checkout'}: {times} f32 on {card}", flush=True)
+        for line in cs.build_report(_build_log()):
+            if "Used" in line or "entry function" in line:
+                print(f"  {line}")
+
+
+def _build_log() -> str:
+    from judo_tpu_torch import _build
+
+    return _build.build_log("cuda")
 
 
 def horizon(card: str) -> None:
@@ -259,7 +301,7 @@ def main() -> int:
 
     import chip_smoke as cs
 
-    modes = {"stages": stages, "unroll": unroll, "horizon": horizon}
+    modes = {"stages": stages, "unroll": unroll, "inline": inline, "horizon": horizon}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}}", file=sys.stderr)
         return 2

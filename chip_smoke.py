@@ -13,13 +13,16 @@ Phases (any failure exits non-zero before the final line):
    dynamic shared memory per block (one rollout's scratch) with the blocks
    that stay resident on one SM, float32 and float64;
 3. kernel vs plain version, float64 and float32:
-   - fused_rollout (K1) against rollout_lanes_reference on the leap model,
-     320 and 33 rollouts, 5 steps, warm-start forces carried;
+   - fused_rollout (K1) against rollout_lanes_reference, 5 steps, warm-start
+     forces carried: the leap model at 320 and 33 rollouts, cylinder_push
+     (cylinder-cylinder and cylinder-box pairs) at 32 and 33, fr3_pick
+     (capsule-capsule pairs, the finger-coupling equality rows, five distance
+     sensors) at 64 and 33;
    - fused_policy_rollout (K2) against policy_rollout_lanes_reference on
      spot_navigate, 24 and 80 rollouts, 3 policy ticks, a random nonzero
      starting policy output;
-   - physics_step (K3) against step_l with a cold probe, leap at 320 and
-     spot at 24 rollouts;
+   - physics_step (K3) against step_l with a cold probe, leap at 320, spot
+     at 24 and fr3_pick at 64 rollouts;
 4. paths, each driven with every launch count set to 0 just before it and
    read just after:
    - leap: make_controller("leap_cube", "mppi") on cuda, float32, 320
@@ -28,10 +31,18 @@ Phases (any failure exits non-zero before the final line):
      rollouts, 2 s horizon (100 policy ticks x 2 physics steps), 1 warm-up
      and 5 timed solves, one K2 launch per solve;
    - single step: physics_step on the leap model at 320 rollouts;
-5. one float64 solve per task, cuda against cpu with shared noise;
+   - cylinder_push: make_controller("cylinder_push", "ps") (the CLI's
+     default), 32 rollouts, 1 s horizon (T = 52 steps of 20 ms), 3 warm-up and
+     10 timed solves, one K1 launch per solve;
+   - fr3_pick: make_controller("fr3_pick", "cem"), 64 rollouts, 1 s horizon
+     (T = 252 steps of 4 ms), 1 warm-up and 5 timed solves, one K1 launch per
+     solve;
+5. one float64 solve per path, cuda against cpu with shared noise (leap and
+   spot with MPPI, cylinder_push with PS, fr3_pick with CEM);
 6. timing with CUDA events: each kernel against its plain version, and its
    bound (the larger of its bytes over the memory rate and its operations
-   over the float32 rate, counted from the shapes of this run); K2 also with
+   over the float32 rate, counted from the shapes of this run); K1 also on
+   cylinder_push (32 rollouts, T 52) and fr3_pick (64, T 252); K2 also with
    no physics substeps, which leaves the policy's share of a tick.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -48,9 +59,17 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "solve_f64": 1e-6}
+LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "f32_distance": 1e-2, "solve_f64": 1e-6}
+# f32_distance: distance sensors in float32. Their box-box separation along a
+# near-parallel edge axis divides by 1 - R^2 (about 3e-4 for fr3's finger and
+# object boxes near the home pose), so float32 rounding of the orientations
+# reaches 1e-3: the plain version in float32 departs from itself in float64 by
+# as much on the same inputs (printed beside each check).
 B_MAIN, T_CHECK, T_FULL = 320, 5, 100
 R_SPOT, T_POLICY_CHECK = 24, 3
+# Rollouts of the K1 checks per scene, and of the K3 check.
+K1_B = {"leap": (B_MAIN, 33), "cylinder_push": (32, 33), "fr3": (64, 33)}
+K3_B = {"leap": B_MAIN, "spot": R_SPOT, "fr3": 64}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -84,6 +103,39 @@ def leap_inputs(m, B: int, T: int, seed: int, dtype, device):
     return tensor(qp.T, dtype, device), tensor(qv.T, dtype, device), tensor(ct, dtype, device)
 
 
+# A pusher touching the cart (cylinder_push), and the arm around its home pose
+# with the object on the table (fr3_pick).
+CYLINDER_PUSH_CONTACT = np.array([0.0, 0.0, 0.45, 0.05])
+
+
+def scene_inputs(scene: str, m, B: int, T: int, seed: int, dtype, device):
+    """(qpos (nq, B), qvel (nv, B), ctrl (T, nu, B)) of a scene: states with
+    active contacts, and controls around the task's warm start."""
+    if scene == "leap":
+        return leap_inputs(m, B, T, seed, dtype, device)
+    rng = np.random.default_rng(seed)
+    if scene == "cylinder_push":
+        qp = np.tile(CYLINDER_PUSH_CONTACT, (B, 1)) + 0.02 * rng.standard_normal((B, 4))
+        qv = 0.3 * rng.standard_normal((B, m.nv))
+        ct = 0.5 * rng.standard_normal((T, m.nu, B))
+    else:
+        from judo_tpu_torch.tasks.fr3_pick import QPOS_HOME
+
+        qp = np.tile(QPOS_HOME, (B, 1))
+        qp[:, 7:14] += 0.05 * rng.standard_normal((B, 7))
+        qv = 0.1 * rng.standard_normal((B, m.nv))
+        warm = np.r_[QPOS_HOME[7:14], 0.04]
+        ct = np.tile(warm, (T, B, 1)).transpose(0, 2, 1) + 0.05 * rng.standard_normal((T, m.nu, B))
+    return tensor(qp.T, dtype, device), tensor(qv.T, dtype, device), tensor(ct, dtype, device)
+
+
+def scene_model(scene: str, dtype):
+    from judo_tpu_torch.tasks import get_registered_tasks
+
+    name = {"leap": "leap_cube", "fr3": "fr3_pick"}.get(scene, scene)
+    return get_registered_tasks()[name][0](device="cuda", dtype=dtype).planning_model
+
+
 def spot_inputs(task, B: int, T: int, seed: int, dtype, device):
     """Standing states with small velocities, a random nonzero policy output,
     and walking commands (base velocity, stowed arm, standing height)."""
@@ -104,15 +156,31 @@ def max_errs(names, ref, out) -> dict:
     return {n: float((a - b).abs().max()) for n, a, b in zip(names, ref, out)}
 
 
-def k1_vs_plain(dtype_name: str, B: int = B_MAIN) -> dict:
+def split_distance_errs(m, err: dict, ref_sens, out_sens, plain64=None) -> None:
+    """Where the model has distance sensors: their error apart from the other
+    sensors' ("distance"), and, given ``plain64`` (the plain version's sensors
+    in float64 on the same inputs), the plain float32 version's own error on
+    them ("distance_plain_f32_vs_f64"). Sensor rows are axis -2."""
+    from judo_tpu_torch.physics.model import SENSOR_DISTANCE
+
+    rows = [m.sensor_adr[i] for i in range(m.nsensor) if m.sensor_type[i] == SENSOR_DISTANCE]
+    if not rows:
+        return
+    other = [k for k in range(ref_sens.shape[-2]) if k not in rows]
+    err["sensors"] = float((ref_sens[..., other, :] - out_sens[..., other, :]).abs().max())
+    err["distance"] = float((ref_sens[..., rows, :] - out_sens[..., rows, :]).abs().max())
+    if plain64 is not None:
+        err["distance_plain_f32_vs_f64"] = float((plain64[..., rows, :] - ref_sens[..., rows, :].double()).abs().max())
+
+
+def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap") -> dict:
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
-    from judo_tpu_torch.tasks.leap_cube import LeapCube
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
-    m = LeapCube(device="cuda", dtype=dtype).planning_model
-    qp, qv, ct = leap_inputs(m, B, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
+    m = scene_model(scene, dtype)
+    qp, qv, ct = scene_inputs(scene, m, B, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
     zeros = torch.zeros((num_constraint_rows(m), B), dtype=dtype, device="cuda")
     # onset forces from one plain step: the carried warm start of a real solve
     f0 = rollout_lanes_reference(m, qp, qv, ct[:1], zeros, 1, 8)[3]
@@ -124,6 +192,11 @@ def k1_vs_plain(dtype_name: str, B: int = B_MAIN) -> dict:
     scale = float(ref[3].abs().max())
     err["efc0_rel"] = err["efc0"] / max(scale, 1e-30)
     err["efc0_scale"] = scale
+    plain64 = None
+    if dtype == torch.float32:
+        d = torch.float64
+        plain64 = rollout_lanes_reference(scene_model(scene, d), qp.to(d), qv.to(d), ct[1:].to(d), f0.to(d), 1, 8)[2]
+    split_distance_errs(m, err, ref[2], out[2], plain64)
     return err
 
 
@@ -148,13 +221,12 @@ def k3_vs_plain(dtype_name: str, scene: str) -> dict:
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import num_constraint_rows, physics_step, physics_step_reference
-    from judo_tpu_torch.tasks.leap_cube import LeapCube
     from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
-    if scene == "leap":
-        m = LeapCube(device="cuda", dtype=dtype).planning_model
-        qp, qv, ct = leap_inputs(m, B_MAIN, 1, seed=6, dtype=dtype, device="cuda")
+    if scene in ("leap", "fr3"):
+        m = scene_model(scene, dtype)
+        qp, qv, ct = scene_inputs(scene, m, K3_B[scene], 1, seed=6, dtype=dtype, device="cuda")
         ctrl = ct[0]
     else:
         task = SpotNavigate(device="cuda", dtype=dtype)
@@ -169,6 +241,11 @@ def k3_vs_plain(dtype_name: str, scene: str) -> dict:
     err["states"] = max(err["states"], err.pop("qvel"))
     scale = float(ref[3].abs().max())
     err["efc_rel"] = err["efc"] / max(scale, 1e-30)
+    plain64 = None
+    if dtype == torch.float32 and scene == "fr3":
+        d = torch.float64
+        plain64 = physics_step_reference(scene_model(scene, d), qp.to(d), qv.to(d), ctrl.to(d), f.to(d), 8)[2]
+    split_distance_errs(m, err, ref[2], out[2], plain64)
     return err
 
 
@@ -261,6 +338,57 @@ def spot_path() -> dict:
             "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min())}
 
 
+def cylinder_push_path() -> dict:
+    """The CLI's default: cylinder_push planned with predictive sampling."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
+    c = make_controller("cylinder_push", "ps", device="cuda", dtype=torch.float32, seed=0)
+    if (c.optimizer_cfg.num_rollouts, c.num_timesteps) != (32, 52):
+        raise RuntimeError("cylinder_push + ps defaults are not R 32, T 52")
+    rng = np.random.default_rng(4)
+    base = np.concatenate([CYLINDER_PUSH_CONTACT, np.zeros(c.pm.nv)])
+
+    def perturbed():
+        s = base.copy()
+        s[:4] += 0.02 * rng.standard_normal(4)
+        s[4:] += 0.1 * rng.standard_normal(4)
+        return s
+
+    times, counts = drive(c, 3, 10, perturbed)
+    if counts["fused_rollout"] != 10:
+        raise RuntimeError(f"fused_rollout launches {counts} != 10 solves")
+    return {"counts": counts, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+            "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min()), "R": 32, "T": c.num_timesteps}
+
+
+def fr3_path() -> dict:
+    """fr3_pick planned with the cross-entropy method."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
+    c = make_controller("fr3_pick", "cem", device="cuda", dtype=torch.float32, seed=0)
+    if (c.optimizer_cfg.num_rollouts, c.num_timesteps) != (64, 252):
+        raise RuntimeError("fr3_pick + cem defaults are not R 64, T 252")
+    rng = np.random.default_rng(5)
+    base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+
+    def perturbed():
+        s = base.copy()
+        s[7:14] += 0.01 * rng.standard_normal(7)
+        s[c.pm.nq :] += 0.02 * rng.standard_normal(c.pm.nv)
+        return s
+
+    times, counts = drive(c, 1, 5, perturbed)
+    if counts["fused_rollout"] != 5:
+        raise RuntimeError(f"fused_rollout launches {counts} != 5 solves")
+    return {"counts": counts, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+            "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min()), "R": 64, "T": c.num_timesteps,
+            "phase": c.task.phase.name}
+
+
 def step_path() -> dict:
     import torch
 
@@ -279,7 +407,7 @@ def step_path() -> dict:
     return {"counts": counts}
 
 
-def solve_gpu_vs_cpu(task_name: str, R: int, horizon: float) -> float:
+def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> float:
     """One float64 solve with shared noise: cuda vs cpu, largest error of rewards and knots."""
     import torch
 
@@ -287,7 +415,7 @@ def solve_gpu_vs_cpu(task_name: str, R: int, horizon: float) -> float:
 
     out = {}
     for dev in ("cpu", "cuda"):
-        c = make_controller(task_name, "mppi", device=dev, dtype=torch.float64, seed=0)
+        c = make_controller(task_name, opt_name, device=dev, dtype=torch.float64, seed=0)
         c.optimizer_cfg.num_rollouts = R
         c.controller_cfg.horizon = horizon
         noise = np.random.default_rng(3).standard_normal((R - 1, c.optimizer_cfg.num_nodes, c.task.nu))
@@ -299,6 +427,8 @@ def solve_gpu_vs_cpu(task_name: str, R: int, horizon: float) -> float:
             from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
             c.current_state = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
+        elif task_name == "cylinder_push":
+            c.current_state = np.concatenate([CYLINDER_PUSH_CONTACT, np.zeros(c.pm.nv)])
         c.update_action()
         out[dev] = (c.rewards.copy(), np.asarray(c.nominal_knots).copy())
     return float(max(np.abs(out["cpu"][0] - out["cuda"][0]).max(), np.abs(out["cpu"][1] - out["cuda"][1]).max()))
@@ -377,6 +507,16 @@ def timing() -> dict:
     res["fused_policy_rollout"] = (
         k2, k2_plain, *bound_ms(io, R_SPOT * T_FULL * (mlp + 2 * step_flops(sm, 8, False)))
     )
+    # K1 at the shapes of the cylinder_push and fr3_pick paths
+    for scene, B, T, reps in (("cylinder_push", 32, 52, 20), ("fr3", 64, 252, 5)):
+        m = scene_model(scene, f32)
+        ne = num_constraint_rows(m)
+        qp, qv, ct = scene_inputs(scene, m, B, T, seed=10, dtype=f32, device="cuda")
+        f0 = torch.zeros((ne, B), dtype=f32, device="cuda")
+        ms = event_ms(lambda: fused_rollout(m, qp, qv, ct, f0, 1, 8), reps)
+        plain = event_ms(lambda: rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8), 1, warmup=False)
+        io = 4 * B * (m.nq + m.nv + 2 * ne + T * (m.nu + m.nq + m.nv + m.nsensordata))
+        res[f"fused_rollout {scene} B={B} T={T}"] = (ms, plain, *bound_ms(io, B * T * step_flops(m, 8, False)))
     # the same launch with no physics substeps: observation, MLP and ctrl only
     res["k2_policy_only_ms"] = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 0, 8), 5)
     return res
@@ -397,10 +537,14 @@ def occupancy_report() -> list:
         name = "f32" if dtype == torch.float32 else "f64"
         m = LeapCube(device="cuda", dtype=dtype).planning_model
         task = SpotNavigate(device="cuda", dtype=dtype)
+        cyl, fr3 = scene_model("cylinder_push", dtype), scene_model("fr3", dtype)
         for kernel, (nbytes, blocks) in (
             ("fused_rollout leap", rollout_blocks_per_sm(m, dtype)),
             ("physics_step leap", rollout_blocks_per_sm(m, dtype, cold=True)),
             ("fused_policy_rollout spot", policy_blocks_per_sm(task.planning_model, task.policy, dtype)),
+            ("fused_rollout cylinder_push", rollout_blocks_per_sm(cyl, dtype)),
+            ("fused_rollout fr3", rollout_blocks_per_sm(fr3, dtype)),
+            ("physics_step fr3", rollout_blocks_per_sm(fr3, dtype, cold=True)),
         ):
             lines.append(f"{kernel} {name}: {nbytes} B dynamic shared memory per block, {blocks} blocks per SM")
     return lines
@@ -443,28 +587,40 @@ def main() -> int:
         ok &= good
         print(f"{label}: max err {value:.3e} limit {limit:.0e} {'ok' if good else 'FAIL'}", flush=True)
 
-    for name in ("f64", "f32"):
-        for B in (B_MAIN, 33):
-            e = errs[("fused_rollout", name, B)] = k1_vs_plain(name, B)
-            lim = LIMITS[name]
-            for k in ("states", "sensors"):
-                check(f"fused_rollout vs plain {name} leap B={B} T={T_CHECK} {k}", e[k], lim)
-            if name == "f64":
-                check(f"fused_rollout vs plain f64 leap B={B} efc0", e["efc0"], lim)
-            else:
-                check(f"fused_rollout vs plain f32 leap B={B} efc0 relative (|efc0| max {e['efc0_scale']:.3e})",
-                      e["efc0_rel"], LIMITS["f32_efc0_rel"])
+    def check_distance(label: str, name: str, e: dict) -> None:
+        if "distance" not in e:
+            return
+        if name == "f64":
+            check(f"{label} distance sensors", e["distance"], LIMITS["f64"])
+        else:
+            check(f"{label} distance sensors (the plain version's own f32 vs f64 error on them "
+                  f"{e['distance_plain_f32_vs_f64']:.3e})", e["distance"], LIMITS["f32_distance"])
+
+    for scene in ("leap", "cylinder_push", "fr3"):
+        for name in ("f64", "f32"):
+            for B in K1_B[scene]:
+                e = errs[("fused_rollout", name, scene, B)] = k1_vs_plain(name, B, scene)
+                lim = LIMITS[name]
+                for k in ("states", "sensors"):
+                    check(f"fused_rollout vs plain {name} {scene} B={B} T={T_CHECK} {k}", e[k], lim)
+                check_distance(f"fused_rollout vs plain {name} {scene} B={B} T={T_CHECK}", name, e)
+                if name == "f64":
+                    check(f"fused_rollout vs plain f64 {scene} B={B} efc0", e["efc0"], lim)
+                else:
+                    check(f"fused_rollout vs plain f32 {scene} B={B} efc0 relative (|efc0| max "
+                          f"{e['efc0_scale']:.3e})", e["efc0_rel"], LIMITS["f32_efc0_rel"])
     for name in ("f64", "f32"):
         for B in (R_SPOT, 80):
             e = errs[("fused_policy_rollout", name, B)] = k2_vs_plain(name, B)
             for k in ("states", "sensors", "pout"):
                 check(f"fused_policy_rollout vs plain {name} spot B={B} T={T_POLICY_CHECK} {k}", e[k], LIMITS[name])
     for name in ("f64", "f32"):
-        for scene in ("leap", "spot"):
+        for scene in ("leap", "spot", "fr3"):
             e = errs[("physics_step", name, scene)] = k3_vs_plain(name, scene)
-            B = B_MAIN if scene == "leap" else R_SPOT
+            B = K3_B[scene]
             for k in ("states", "sensors"):
                 check(f"physics_step vs plain {name} {scene} B={B} {k}", e[k], LIMITS[name])
+            check_distance(f"physics_step vs plain {name} {scene} B={B}", name, e)
             if name == "f64":
                 check(f"physics_step vs plain f64 {scene} efc", e["efc"], LIMITS["f64"])
             else:
@@ -483,10 +639,18 @@ def main() -> int:
           f"{spot['reward_max']:.4f}] on {card}", flush=True)
     step = step_path()
     print(f"path physics_step leap B={B_MAIN} f32: launches {step['counts']}", flush=True)
+    new_paths = {}
+    for label, fn in (("cylinder_push ps", cylinder_push_path), ("fr3_pick cem", fr3_path)):
+        p = new_paths[label] = fn()
+        print(f"path {label} R={p['R']} T={p['T']} f32: p50 {p['p50_ms']:.2f} ms p95 {p['p95_ms']:.2f} ms "
+              f"launches {p['counts']} in {p['counts']['fused_rollout']} solves, rewards [{p['reward_min']:.4f}, "
+              f"{p['reward_max']:.4f}]{' phase ' + p['phase'] if 'phase' in p else ''} on {card}", flush=True)
 
-    for task_name, R, horizon in (("leap_cube", 16, 0.2), ("spot_navigate", 4, 0.4)):
-        d = solve_gpu_vs_cpu(task_name, R, horizon)
-        check(f"solve f64 {task_name} R={R} horizon {horizon} s cuda vs cpu (shared noise)", d, LIMITS["solve_f64"])
+    for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
+                                            ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032)):
+        d = solve_gpu_vs_cpu(task_name, opt_name, R, horizon)
+        check(f"solve f64 {task_name} {opt_name} R={R} horizon {horizon} s cuda vs cpu (shared noise)", d,
+              LIMITS["solve_f64"])
     if not ok:
         return 1
 
@@ -499,16 +663,17 @@ def main() -> int:
     print(f"time fused_policy_rollout f32 with 0 physics substeps (observation, MLP, ctrl): "
           f"{t['k2_policy_only_ms']:.3f} ms on {card}", flush=True)
 
-    launches = {"fused_rollout": leap["counts"]["fused_rollout"],
+    launches = {"fused_rollout": leap["counts"]["fused_rollout"] + sum(p["counts"]["fused_rollout"]
+                                                                       for p in new_paths.values()),
                 "fused_policy_rollout": spot["counts"]["fused_policy_rollout"],
                 "physics_step": step["counts"]["physics_step"]}
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
-         max(errs[("fused_rollout", "f32", B)]["states"] for B in (B_MAIN, 33))),
+         max(e["states"] for k, e in errs.items() if k[0] == "fused_rollout" and k[1] == "f32")),
         ("fused_policy_rollout", "judo_tpu_torch/csrc/fused_policy_rollout.cu", "judo_tpu/physics/pallas_step.py:310",
          max(errs[("fused_policy_rollout", "f32", B)]["states"] for B in (R_SPOT, 80))),
         ("physics_step", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:71",
-         max(errs[("physics_step", "f32", s)]["states"] for s in ("leap", "spot"))),
+         max(errs[("physics_step", "f32", s)]["states"] for s in K3_B)),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],

@@ -133,6 +133,9 @@ def load(kind: str) -> ctypes.CDLL:
         lib.jt_policy_blocks_per_sm.argtypes = [i, i, pi]
         for fn in (lib.jt_smem_optin, lib.jt_rollout_blocks_per_sm, lib.jt_policy_blocks_per_sm):
             fn.restype = ctypes.c_int
+    if kind == "host":
+        lib.jt_pair_contacts_f64.argtypes = [ctypes.c_int] + [p] * 9
+        lib.jt_pair_contacts_f64.restype = ctypes.c_int
     lib.jt_error_string.argtypes = [ctypes.c_int]
     lib.jt_error_string.restype = ctypes.c_char_p
     _LOADED[kind] = lib

@@ -2,7 +2,7 @@
 ``Controller`` around it (counterpart of ``judo_tpu/controller/controller.py``).
 
 One ``update_action`` runs ``solve``: resample the nominal spline, draw the
-MPPI samples and clip them, evaluate the candidate splines at the rollout
+optimizer's samples and clip them, evaluate the candidate splines at the rollout
 times, roll out the physics (one fused kernel on CUDA; for a task with a
 locomotion policy in the loop, the fused policy rollout), score, update the
 nominal, and pack everything the host reads into one mirror vector that
@@ -24,6 +24,7 @@ from judo_tpu_torch.config import OverridableConfig
 from judo_tpu_torch.gui import slider
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
+from judo_tpu_torch.optimizers.base import top_k_indices
 from judo_tpu_torch.physics.fused_rollout import rollout_lanes
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
@@ -32,8 +33,7 @@ from judo_tpu_torch.utils import normalization as norm
 
 PIPELINE_ROADMAP_ITEM = "ROADMAP.md queue 1, 'pipeline_depth > 0 with CUDA streams and pinned memory'"
 # Tasks of the JAX package whose port is still queued (ROADMAP.md queue 1).
-UNPORTED_TASKS = ("spot_base", "spot_box_push", "spot_tire_roll", "spot_tire_upright", "cartpole", "cylinder_push",
-                  "fr3_pick", "leap_cube_down", "caltech_leap_cube")
+UNPORTED_TASKS = ("spot_base", "spot_box_push", "spot_tire_roll", "spot_tire_upright")
 
 
 @slider("horizon", 0.1, 10.0, bounded=True)
@@ -130,7 +130,7 @@ def solve(
     n_trace = len(ctrl.trace_sensors)
     k = min(ctrl.max_num_traces, optimizer.num_rollouts)
     if n_trace > 0 and k > 0:
-        elite = torch.topk(rewards, k).indices
+        elite = top_k_indices(rewards, k)
         tr = sensors[elite][:, :, ctrl.trace_inds]  # (k, T, 3 * n_trace)
         tr = tr.reshape(k, tr.shape[1], n_trace, 3).transpose(1, 2)  # (k, n_trace, T, 3)
         traces = torch.stack([tr[:, :, :-1], tr[:, :, 1:]], dim=3)
@@ -320,10 +320,24 @@ class Controller:
         self.update_spline(self.times, self.nominal_knots)
 
     def _sync_state_shapes(self) -> None:
-        """Re-zero the per-rollout carries after a change of num_rollouts."""
+        """Re-zero the per-rollout carries after a change of num_rollouts;
+        after a change of num_nodes, re-interpolate the nominal knots and the
+        optimizer state (CEM's sigma) linearly onto the new knot times, and
+        re-initialise any state that has no knot axis to carry."""
         if self._carry.efc_warm.shape[0] != self.optimizer_cfg.num_rollouts:
             self._carry.efc_warm = self._init_efc_warm()
             self._carry.last_policy_output = self._init_policy_output()
+        n = self.optimizer_cfg.num_nodes
+        if self._carry.nominal_knots.shape[0] != n:
+            old_times = self._carry.times
+            new_times = torch.linspace(float(old_times[0]), float(old_times[-1]), n, dtype=self.dtype, device=self.device)
+            nominal = eval_spline(old_times, self._carry.nominal_knots, new_times, "linear")
+            opt_state = self.optimizer.pre_optimization(
+                self.optimizer.params(self.dtype, self.device), self._carry.opt_state, old_times, new_times
+            )
+            init = self.optimizer.init_state(self.dtype, self.device)
+            opt_state = {k: v if v.shape == init[k].shape else init[k] for k, v in opt_state.items()}
+            self._carry = replace(self._carry, times=new_times, nominal_knots=nominal, opt_state=opt_state)
 
 
 def make_controller(

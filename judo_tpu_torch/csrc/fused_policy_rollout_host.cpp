@@ -10,9 +10,10 @@ template <typename T>
 static int run(const JtSizes* s, const int* mi, const T* mf, const int* pi, const T* pf, const T* qpos0,
                const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, int maxw) {
   std::vector<T> work(jt::make_policy_scratch(*s, maxw).total);
-  for (int b = 0; b < s->B; ++b)
-    jt::policy_rollout<T>(*s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, work.data(), b);
-  return 0;
+  return jt::host_guard([&] {
+    for (int b = 0; b < s->B; ++b)
+      jt::policy_rollout<T>(*s, mi, mf, pi, pf, qpos0, qvel0, pout0, cmds, oq, ov, os, op, work.data(), b);
+  });
 }
 
 extern "C" {

@@ -13,8 +13,9 @@ template <typename T>
 static int run(const JtSizes* s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
                const T* f0, T* oq, T* ov, T* os, T* of0) {
   std::vector<T> work(jt::make_scratch(*s).total);
-  for (int b = 0; b < s->B; ++b) jt::rollout<T>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, work.data(), b);
-  return 0;
+  return jt::host_guard([&] {
+    for (int b = 0; b < s->B; ++b) jt::rollout<T>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, work.data(), b);
+  });
 }
 
 extern "C" {
@@ -38,5 +39,12 @@ int jt_fused_rollout_f64(const JtSizes* s, const int* mi, const double* mf, cons
   return run<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
 }
 
-const char* jt_error_string(int) { return "no error"; }
+// The contact slots of one geom pair (x, row-major m, sizes s) of pair kind
+// `kind`, at most 4 (d, pos, nrm); -1 for an unknown kind. For tests.
+int jt_pair_contacts_f64(int kind, const double* x1, const double* m1, const double* s1, const double* x2,
+                         const double* m2, const double* s2, double* d, double* pos, double* nrm) {
+  return jt::host_guard([&] { jt::pair_contacts(kind, x1, m1, s1, x2, m2, s2, d, pos, nrm); });
+}
+
+const char* jt_error_string(int code) { return code == 0 ? "no error" : jt::host_error().c_str(); }
 }

@@ -1,11 +1,17 @@
 // Narrowphase of one rollout: plane-sphere (1 slot), plane-capsule (2),
-// plane-box (4), capsule-box (2) and box-box (4). Scalar twins of
+// plane-box (4), capsule-capsule (1), capsule-box (2), cylinder-cylinder (2),
+// cylinder-box (2) and box-box (4). Scalar twins of
 // judo_tpu_torch/physics/lane_collision.py; the one-hot
 // selections of the lanes code become index choices with the same tie rules
-// (first index wins among equal keys).
+// (first index wins among equal keys). pair_contacts dispatches on the pair
+// kind code and stops on a code it does not know: a trap on the card, an
+// exception in the host twin.
 #pragma once
 
 #include "jt_common.cuh"
+
+#include <stdexcept>
+#include <string>
 
 namespace jt {
 
@@ -296,5 +302,149 @@ HD void box_box(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2,
     for (int k = 0; k < 3; ++k) nrm[3 * s + k] = normal[k];
   }
 }
+
+// v / |v| where |v| > eps, else the fallback.
+template <typename T>
+HD void safe_unit(const T* v, const T* fallback, T eps, T* o) {
+  const T n = tsqrt(tmax(dot3(v, v), T(1e-24)));
+  for (int k = 0; k < 3; ++k) o[k] = n > eps ? v[k] / n : fallback[k];
+}
+
+// Closest points c1 on segment p1-q1 and c2 on p2-q2.
+template <typename T>
+HD void segment_segment(const T* p1, const T* q1, const T* p2, const T* q2, T* c1, T* c2) {
+  T d1[3], d2[3], r[3];
+  for (int k = 0; k < 3; ++k) {
+    d1[k] = q1[k] - p1[k];
+    d2[k] = q2[k] - p2[k];
+    r[k] = p1[k] - p2[k];
+  }
+  const T a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, r), cr = dot3(d1, r), b = dot3(d1, d2);
+  const T denom = a * e - b * b;
+  T s = denom > T(1e-12) ? tclip((b * f - cr * e) / tmax(denom, T(1e-12)), T(0), T(1)) : T(0);
+  const T t = tclip((b * s + f) / tmax(e, T(1e-12)), T(0), T(1));
+  s = tclip((b * t - cr) / tmax(a, T(1e-12)), T(0), T(1));
+  for (int k = 0; k < 3; ++k) {
+    c1[k] = p1[k] + s * d1[k];
+    c2[k] = p2[k] + t * d2[k];
+  }
+}
+
+// Capsule (radius s[0], half length s[1]) against a capsule: the closest
+// points of the two segments.
+template <typename T>
+HD void capsule_capsule(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2, T* dist,
+                        T* pos, T* nrm) {
+  T a1[3], a2[3], e1[3], f1[3], e2[3], f2[3], c1[3], c2[3], delta[3];
+  mcol(m1, 2, a1);
+  mcol(m2, 2, a2);
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = x1[k] - s1[1] * a1[k];
+    f1[k] = x1[k] + s1[1] * a1[k];
+    e2[k] = x2[k] - s2[1] * a2[k];
+    f2[k] = x2[k] + s2[1] * a2[k];
+  }
+  segment_segment(e1, f1, e2, f2, c1, c2);
+  for (int k = 0; k < 3; ++k) delta[k] = c2[k] - c1[k];
+  const T dn = tsqrt(tmax(dot3(delta, delta), T(1e-24)));
+  const T ez[3] = {T(0), T(0), T(1)};
+  safe_unit(delta, ez, T(1e-9), nrm);
+  dist[0] = dn - s1[0] - s2[0];
+  for (int k = 0; k < 3; ++k) pos[k] = c1[k] + nrm[k] * (s1[0] + T(0.5) * dist[0]);
+}
+
+// Cylinder (radius s[0], half height s[1]) against a cylinder: the radial
+// contact of near-parallel axes whose heights overlap, at both ends of the
+// overlap; any other pose puts kBig in both slots.
+template <typename T>
+HD void cylinder_cylinder(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2, T* dist,
+                          T* pos, T* nrm) {
+  T a1[3], a2[3], c0[3], delta[3], radial[3], n[3];
+  mcol(m1, 2, a1);
+  mcol(m2, 2, a2);
+  mcol(m1, 0, c0);
+  for (int k = 0; k < 3; ++k) delta[k] = x2[k] - x1[k];
+  const T h = dot3(delta, a1);
+  for (int k = 0; k < 3; ++k) radial[k] = delta[k] - a1[k] * h;
+  const T rn = tsqrt(tmax(dot3(radial, radial), T(1e-24)));
+  safe_unit(radial, c0, T(1e-9), n);
+  const bool parallel = tabs(dot3(a1, a2)) > T(0.99);
+  const bool overlap = tabs(h) < s1[1] + s2[1];
+  const T d_radial = rn - s1[0] - s2[0];
+  const T d = parallel && overlap ? d_radial : T(kBig);
+  const T hh[2] = {tmin(s1[1], h + s2[1]), tmax(-s1[1], h - s2[1])};
+  const T q = s1[0] + T(0.5) * d_radial;
+  for (int s = 0; s < 2; ++s) {
+    dist[s] = d;
+    for (int k = 0; k < 3; ++k) {
+      pos[3 * s + k] = (x1[k] + n[k] * q) + a1[k] * hh[s];
+      nrm[3 * s + k] = n[k];
+    }
+  }
+}
+
+// A contact distance d of a capsule of radius r (axis `axis`) corrected to the
+// rim of the cylinder of the same radius.
+template <typename T>
+HD T cyl_correction(T d, const T* n, const T* axis, T r) {
+  const T na = tclip(tabs(dot3(n, axis)), T(0), T(1));
+  return d + r * (T(1) - tsqrt(tmax(T(1) - na * na, T(0))));
+}
+
+// Cylinder against a box: capsule-box of the cylinder's axis, each slot's
+// distance corrected to the rim.
+template <typename T>
+HD void cylinder_box(const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2, T* dist, T* pos,
+                     T* nrm) {
+  capsule_box(x1, m1, s1, x2, m2, s2, dist, pos, nrm);
+  T axis[3];
+  mcol(m1, 2, axis);
+  for (int s = 0; s < 2; ++s) dist[s] = cyl_correction(dist[s], nrm + 3 * s, axis, s1[0]);
+}
+
+// The contact slots of one pair of kind `kind` (at most 4) into dist, pos
+// and nrm. An unknown code is never computed as some other pair: it stops
+// the kernel. A call, not inlined: the narrowphase and the distance sensors
+// share one copy of the eight kinds' code.
+template <typename T>
+HD_NOINLINE void pair_contacts(int kind, const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2, T* d,
+                      T* pos, T* nrm) {
+  switch (kind) {
+    case PAIR_BOX_BOX: box_box(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_CAPSULE_BOX: capsule_box(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_PLANE_SPHERE: plane_sphere(x1, m1, x2, s2, d, pos, nrm); return;
+    case PAIR_PLANE_CAPSULE: plane_capsule(x1, m1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_PLANE_BOX: plane_box(x1, m1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_CAPSULE_CAPSULE: capsule_capsule(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_CYLINDER_CYLINDER: cylinder_cylinder(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_CYLINDER_BOX: cylinder_box(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    default:
+#ifdef __CUDA_ARCH__
+      __trap();
+#else
+      throw std::runtime_error("narrowphase: unknown pair kind code");
+#endif
+  }
+}
+
+#ifndef __CUDACC__
+// The host twins' guard: run f(), and turn an exception of the step body into
+// error code -1, its message kept for jt_error_string.
+inline std::string& host_error() {
+  static std::string msg;
+  return msg;
+}
+
+template <class F>
+int host_guard(F f) {
+  try {
+    f();
+    return 0;
+  } catch (const std::exception& e) {
+    host_error() = e.what();
+    return -1;
+  }
+}
+#endif
 
 }  // namespace jt

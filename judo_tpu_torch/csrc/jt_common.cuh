@@ -23,19 +23,25 @@
 
 #ifdef __CUDACC__
 #define HD __host__ __device__ inline
+#define HD_FORCEINLINE __host__ __device__ __forceinline__
+#define HD_NOINLINE __host__ __device__ __noinline__
 #else
 #define HD inline
+#define HD_FORCEINLINE inline
+#define HD_NOINLINE inline
 #endif
 
 extern "C" {
 // Sizes of one launch; mirrored by fused_rollout.py:_Sizes.
 // pyramidal: 4 facet rows per contact and the orthant projection (else the
 // elliptic cone's 3 rows); cold: start each launch's probe with 3 warm-up
-// |A| applies instead of reading the carried one.
+// |A| applies instead of reading the carried one. nnc: the rows before the
+// contact block (joint-equality rows, then joint-limit rows); ndist, ndpair:
+// distance sensors and the geom pairs they read.
 struct JtSizes {
   int B, T, substeps, iterations, pyramidal, cold;
   int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, nsensordata;
-  int nlim, npair, ncon, nefc, nisl;
+  int nnc, npair, ncon, nefc, nisl, ndist, ndpair;
   int nu_, ns_, nefc_;
 };
 }
@@ -43,7 +49,11 @@ struct JtSizes {
 namespace jt {
 
 enum { FREE = 0, BALL = 1, SLIDE = 2, HINGE = 3 };
-enum { PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1, PAIR_PLANE_SPHERE = 2, PAIR_PLANE_CAPSULE = 3, PAIR_PLANE_BOX = 4 };
+// Pair kind codes; fused_rollout.py:PAIR_KINDS mirrors them.
+enum {
+  PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1, PAIR_PLANE_SPHERE = 2, PAIR_PLANE_CAPSULE = 3, PAIR_PLANE_BOX = 4,
+  PAIR_CAPSULE_CAPSULE = 5, PAIR_CYLINDER_CYLINDER = 6, PAIR_CYLINDER_BOX = 7, NUM_PAIR_KINDS = 8
+};
 enum { S_JOINTPOS = 9, S_JOINTVEL = 10, S_FRAMEPOS = 26, S_FRAMEQUAT = 27, S_FRAMEXAXIS = 28,
        S_FRAMEZAXIS = 30 };
 enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
@@ -59,21 +69,29 @@ enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
 // act   I: qadr dadr ctrllimited forcelimited
 //       F: gear gain bias0 bias1 bias2 ctrl_lo ctrl_hi force_lo force_hi
 // sensor I: type objtype objid adr dim reftype refid
-// limit row I: qadr dadr     F: side range margin solimp5 k b invweight
+// row before the contacts (one of nnc), I: kind q1adr d1adr q2adr d2adr
+//       F: side a b solimp5 k b invweight coef5
+//       kind ROW_LIMIT: a = the range end, b = margin (q2adr, d2adr, coef unused);
+//       kind ROW_EQUALITY: a, b = qpos0 of joints 1 and 2, q2adr = -1 where
+//       there is no second joint, coef the polynomial's
 // pair  I: kind g1 g2 slot0 nslot   F: size1_3 size2_3
 // slot  I: body1 body2              F: mu k b solimp5 margin diag
 //       (diag: the rows' invweight; max(2 invweight mu^2 (1 + mu^2), 1e-15)
 //       for pyramidal facets)
 // island I: start size
+// distance sensor I: adr dpair0 ndpair   F: cutoff
+// distance pair I: kind g1 g2 nslot      F: size1_3 size2_3
 // then body_dof_mask (nbody x nv ints); scalars start with the globals
 // timestep gravity3 impratio.
 constexpr int BI = 4, BF = 19, JI = 5, JF = 11, DI = 2, DF = 3, GI = 1, GF = 7, SI = 1, SF = 7;
-constexpr int AI = 4, AF = 9, NI = 7, LI = 2, LF = 11, PI = 5, PF = 6, CI = 2, CF = 10, II = 2;
+constexpr int AI = 4, AF = 9, NI = 7, LI = 5, LF = 16, PI = 5, PF = 6, CI = 2, CF = 10, II = 2;
+constexpr int XI = 3, XF = 1, QI = 4, QF = 6;
 constexpr int GLOBF = 5;
+enum { ROW_LIMIT = 0, ROW_EQUALITY = 1 };
 
 struct Layout {
-  int ib, ij, id, ig, is, ia, in, il, ip, ic, ii, imask, nint;
-  int fb, fj, fd, fg, fs, fa, fl, fp, fc, nflt;
+  int ib, ij, id, ig, is, ia, in, il, ip, ic, ii, ix, iq, imask, nint;
+  int fb, fj, fd, fg, fs, fa, fl, fp, fc, fx, fq, nflt;
 };
 
 HD Layout make_layout(const JtSizes& s) {
@@ -86,10 +104,12 @@ HD Layout make_layout(const JtSizes& s) {
   L.is = o; o += SI * s.nsite;
   L.ia = o; o += AI * s.nu;
   L.in = o; o += NI * s.nsensor;
-  L.il = o; o += LI * s.nlim;
+  L.il = o; o += LI * s.nnc;
   L.ip = o; o += PI * s.npair;
   L.ic = o; o += CI * s.ncon;
   L.ii = o; o += II * s.nisl;
+  L.ix = o; o += XI * s.ndist;
+  L.iq = o; o += QI * s.ndpair;
   L.imask = o; o += s.nbody * s.nv;
   L.nint = o;
   o = GLOBF;
@@ -99,9 +119,11 @@ HD Layout make_layout(const JtSizes& s) {
   L.fg = o; o += GF * s.ngeom;
   L.fs = o; o += SF * s.nsite;
   L.fa = o; o += AF * s.nu;
-  L.fl = o; o += LF * s.nlim;
+  L.fl = o; o += LF * s.nnc;
   L.fp = o; o += PF * s.npair;
   L.fc = o; o += CF * s.ncon;
+  L.fx = o; o += XF * s.ndist;
+  L.fq = o; o += QF * s.ndpair;
   L.nflt = o;
   return L;
 }
@@ -195,9 +217,9 @@ struct Lane {
 // lane and writes no scratch.
 //   for_each(n, f): f(i) for i < n, lane l taking i = l, l + 32, ...; ends
 //     with __syncwarp, so what f wrote is visible to every lane afterwards.
-//   sum(n, f), max(n, f, init): each lane folds its indices in that order,
-//     then an xor-shuffle tree combines the 32 partials; every lane gets the
-//     same value.
+//   sum(n, f), max(n, f, init), min(n, f, init): each lane folds its indices
+//     in that order, then an xor-shuffle tree combines the 32 partials; every
+//     lane gets the same value.
 //   single(f): f() on lane 0 alone, then __syncwarp.
 // Compiled by g++, one thread plays the 32 lanes in the same partition and
 // the same tree, so the host twin's sums round as the card's do.
@@ -233,6 +255,11 @@ struct Warp {
   template <class F, typename T>
   static HD T max(int n, F f, T init) {
     return fold(n, f, init, [](T a, T b) { return a > b ? a : b; });
+  }
+
+  template <class F, typename T>
+  static HD T min(int n, F f, T init) {
+    return fold(n, f, init, [](T a, T b) { return a < b ? a : b; });
   }
 
  private:

@@ -1,5 +1,6 @@
 // One physics step and the whole T-step rollout of one rollout, computed by
-// one warp: sensors, narrowphase, constraint assembly, the accelerated
+// one warp: sensors (distance sensors over the warp), narrowphase, constraint
+// assembly (joint equalities, joint limits, contacts), the accelerated
 // projected-gradient dual solve with the carried Collatz-Wielandt probe, and
 // implicit-damping integration. Twin of judo_tpu_torch/physics/lane_step.py:
 // step_l and fused_rollout.py:rollout_lanes_reference. Every stage that walks
@@ -79,6 +80,37 @@ HD void sensors(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<T> out) {
   }
 }
 
+// The contact slots of geoms g1 and g2 (sizes s1, s2) of pair kind `kind`.
+template <typename T>
+HD void geom_pair_contacts(const Ctx<T>& c, int kind, int g1, int g2, const T* s1, const T* s2, T* d, T* pos,
+                           T* nrm) {
+  T x1[3], m1[9], x2[3], m2[9];
+  lload(c.w, c.S.gxpos + 3 * g1, 3, x1);
+  lload(c.w, c.S.gxmat + 9 * g1, 9, m1);
+  lload(c.w, c.S.gxpos + 3 * g2, 3, x2);
+  lload(c.w, c.S.gxmat + 9 * g2, 9, m2);
+  pair_contacts(kind, x1, m1, s1, x2, m2, s2, d, pos, nrm);
+}
+
+// Distance sensors between two bodies: the least of the cutoff and every slot
+// distance of the sensor's geom pairs. Lanes over the pairs, then a warp min.
+template <typename T>
+HD void distance_sensors(const Ctx<T>& c, Lane<T> out) {
+  for (int i = 0; i < c.s.ndist; ++i) {
+    const int* xi = c.mi + c.L.ix + XI * i;
+    const T v = Warp::min(xi[2], [&](int k) {
+      const int* qi = c.mi + c.L.iq + QI * (xi[1] + k);
+      const T* qf = c.mf + c.L.fq + QF * (xi[1] + k);
+      T d[4], pos[12], nrm[12];
+      geom_pair_contacts(c, qi[0], qi[1], qi[2], qf, qf + 3, d, pos, nrm);
+      T least = d[0];
+      for (int s = 1; s < qi[3]; ++s) least = tmin(least, d[s]);
+      return least;
+    }, c.mf[c.L.fx + XF * i]);
+    Warp::single([&] { out[xi[0]] = v; });
+  }
+}
+
 // Lanes over pairs; each pair writes its own contact slots.
 template <typename T>
 HD void narrowphase(const Ctx<T>& c) {
@@ -86,18 +118,8 @@ HD void narrowphase(const Ctx<T>& c) {
   Warp::for_each(c.s.npair, [&](int p) {
     const int* pi = c.mi + c.L.ip + PI * p;
     const T* pf = c.mf + c.L.fp + PF * p;
-    T x1[3], m1[9], x2[3], m2[9], d[4], pos[12], nrm[12];
-    lload(w, c.S.gxpos + 3 * pi[1], 3, x1);
-    lload(w, c.S.gxmat + 9 * pi[1], 9, m1);
-    lload(w, c.S.gxpos + 3 * pi[2], 3, x2);
-    lload(w, c.S.gxmat + 9 * pi[2], 9, m2);
-    switch (pi[0]) {
-      case PAIR_BOX_BOX: box_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm); break;
-      case PAIR_CAPSULE_BOX: capsule_box(x1, m1, pf, x2, m2, pf + 3, d, pos, nrm); break;
-      case PAIR_PLANE_SPHERE: plane_sphere(x1, m1, x2, pf + 3, d, pos, nrm); break;
-      case PAIR_PLANE_CAPSULE: plane_capsule(x1, m1, x2, m2, pf + 3, d, pos, nrm); break;
-      default: plane_box(x1, m1, x2, m2, pf + 3, d, pos, nrm); break;
-    }
+    T d[4], pos[12], nrm[12];
+    geom_pair_contacts(c, pi[0], pi[1], pi[2], pf, pf + 3, d, pos, nrm);
     for (int s = 0; s < pi[4]; ++s) {
       const int slot = pi[3] + s;
       w[c.S.cdist + slot] = d[s];
@@ -107,26 +129,58 @@ HD void narrowphase(const Ctx<T>& c) {
   });
 }
 
+// A joint-equality row: side * (e1 - poly'(dq2) e2), the violation
+// q1 - q1_0 - poly(q2 - q2_0) of a quartic poly (a constant without a second
+// joint); always active.
+template <typename T>
+HD void equality_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li, const T* lf, int r) {
+  const Lane<T> w = c.w;
+  const T side = lf[0], *cf = lf + 11;
+  const bool two = li[3] >= 0;
+  const T dq2 = two ? qpos[li[3]] - lf[2] : T(0);
+  const T poly = two ? cf[0] + dq2 * (cf[1] + dq2 * (cf[2] + dq2 * (cf[3] + dq2 * cf[4]))) : cf[0];
+  const T dpoly = two ? cf[1] + dq2 * (T(2) * cf[2] + dq2 * (T(3) * cf[3] + dq2 * T(4) * cf[4])) : T(0);
+  const T pos = (qpos[li[1]] - lf[1]) - poly;
+  const T imp = impedance(lf + 3, pos);
+  const T vel = two ? qvel[li[2]] - dpoly * qvel[li[4]] : qvel[li[2]];
+  for (int v = 0; v < c.s.nv; ++v) {
+    w[c.S.J + r * c.S.jld + v] = v == li[2] ? side : (two && v == li[4] ? side * -dpoly : T(0));
+  }
+  w[c.S.aref + r] = side * (-lf[9] * vel - lf[8] * imp * pos);
+  w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
+  w[c.S.act + r] = T(1);
+  w[c.S.diag + r] = lf[10];
+}
+
+// A joint-limit row: side * e_dof, active within the margin of its range end.
+template <typename T>
+HD void limit_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li, const T* lf, int r) {
+  const Lane<T> w = c.w;
+  const T side = lf[0], q = qpos[li[1]];
+  const T dist = side > T(0) ? q - lf[1] : lf[1] - q;
+  const T pos = dist - lf[2];
+  const T imp = impedance(lf + 3, pos);
+  for (int v = 0; v < c.s.nv; ++v) w[c.S.J + r * c.S.jld + v] = v == li[2] ? side : T(0);
+  w[c.S.aref + r] = -lf[9] * (side * qvel[li[2]]) - lf[8] * imp * pos;
+  w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
+  w[c.S.act + r] = dist < lf[2] ? T(1) : T(0);
+  w[c.S.diag + r] = lf[10];
+}
+
 // Constraint rows (masked by activity), and b = J qacc_smooth - aref. Lanes
-// over limit rows, then over contact slots (each writes its own 3 or 4 rows),
-// then over rows for the masking and b.
+// over the rows before the contacts (joint equalities, joint limits), then
+// over contact slots (each writes its own 3 or 4 rows), then over rows for
+// the masking and b.
 template <typename T>
 HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   const Lane<T> w = c.w;
-  const int nv = c.s.nv, nlim = c.s.nlim, nc = c.s.ncon, ld = c.S.jld;
+  const int nv = c.s.nv, nnc = c.s.nnc, nc = c.s.ncon, ld = c.S.jld;
   const T impratio = c.mf[4];
-  Warp::for_each(nlim, [&](int r) {
+  Warp::for_each(nnc, [&](int r) {
     const int* li = c.mi + c.L.il + LI * r;
     const T* lf = c.mf + c.L.fl + LF * r;
-    const T side = lf[0], q = qpos[li[0]];
-    const T dist = side > T(0) ? q - lf[1] : lf[1] - q;
-    const T pos = dist - lf[2];
-    const T imp = impedance(lf + 3, pos);
-    for (int v = 0; v < nv; ++v) w[c.S.J + r * ld + v] = v == li[1] ? side : T(0);
-    w[c.S.aref + r] = -lf[9] * (side * qvel[li[1]]) - lf[8] * imp * pos;
-    w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
-    w[c.S.act + r] = dist < lf[2] ? T(1) : T(0);
-    w[c.S.diag + r] = lf[10];
+    if (li[0] == ROW_EQUALITY) equality_row(c, qpos, qvel, li, lf, r);
+    else limit_row(c, qpos, qvel, li, lf, r);
   });
   Warp::for_each(nc, [&](int ci) {
     const int* sI = c.mi + c.L.ic + CI * ci;
@@ -176,13 +230,13 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
       const T jf[4] = {pyr ? jg[0] + mu * jg[1] : jg[0], pyr ? jg[0] - mu * jg[1] : jg[1],
                        pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
       for (int f = 0; f < nrow; ++f) {
-        const int r = pyr ? nlim + 4 * ci + f : nlim + f * nc + ci;
+        const int r = pyr ? nnc + 4 * ci + f : nnc + f * nc + ci;
         w[c.S.J + r * ld + v] = jf[f];
         vel[f] = vel[f] + jf[f] * qvel[v];
       }
     }
     for (int f = 0; f < nrow; ++f) {
-      const int r = pyr ? nlim + 4 * ci + f : nlim + f * nc + ci;
+      const int r = pyr ? nnc + 4 * ci + f : nnc + f * nc + ci;
       const bool normal = pyr || f == 0;
       w[c.S.aref + r] = normal ? -sF[2] * vel[f] - sF[1] * imp * pos : -sF[2] * vel[f];
       w[c.S.reg + r] = normal ? reg_n : reg_n / impratio;
@@ -203,29 +257,30 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   });
 }
 
-// Projection onto the orthant (limit rows, pyramidal facets) x second-order
-// cones (elliptic contacts): lanes over orthant rows, then over contacts.
+// Projection onto the orthant (equality and limit rows, pyramidal facets) x
+// second-order cones (elliptic contacts): lanes over orthant rows, then over
+// contacts.
 template <typename T>
 HD void project(const Ctx<T>& c, int64_t z) {
   T* const w = c.w.p;
-  const int nlim = c.s.pyramidal ? c.s.nefc : c.s.nlim, nc = c.s.pyramidal ? 0 : c.s.ncon;
-  Warp::for_each(nlim + nc, [&](int i) {
-    if (i < nlim) {
+  const int nor = c.s.pyramidal ? c.s.nefc : c.s.nnc, nc = c.s.pyramidal ? 0 : c.s.ncon;
+  Warp::for_each(nor + nc, [&](int i) {
+    if (i < nor) {
       w[z + i] = tmax(w[z + i], T(0));
       return;
     }
-    const int ci = i - nlim;
+    const int ci = i - nor;
     const T mu = w[c.S.muc + ci];
-    const T n = w[z + nlim + ci], t1 = w[z + nlim + nc + ci], t2 = w[z + nlim + 2 * nc + ci];
+    const T n = w[z + nor + ci], t1 = w[z + nor + nc + ci], t2 = w[z + nor + 2 * nc + ci];
     const T s = tsqrt(t1 * t1 + t2 * t2);
     const bool inside = s <= mu * n, polar = mu * s <= -n;
     const T a = (mu * s + n) / (T(1) + mu * mu);
     const T coef = mu * a / tmax(s, T(kMinval));
     const T n_out = inside ? n : (polar ? T(0) : a);
     const T ts = inside ? T(1) : (polar ? T(0) : coef);
-    w[z + nlim + ci] = n_out;
-    w[z + nlim + nc + ci] = t1 * ts;
-    w[z + nlim + 2 * nc + ci] = t2 * ts;
+    w[z + nor + ci] = n_out;
+    w[z + nor + nc + ci] = t1 * ts;
+    w[z + nor + 2 * nc + ci] = t2 * ts;
   });
 }
 
@@ -279,7 +334,7 @@ HD T norm_inv(const Ctx<T>& c, int64_t x, int n) {
 template <typename T>
 HD void dual_solve(const Ctx<T>& c) {
   T* const w = c.w.p;
-  const int nv = c.s.nv, ne = c.s.nefc, nlim = c.s.nlim, nc = c.s.ncon, ld = c.S.jld;
+  const int nv = c.s.nv, ne = c.s.nefc, nnc = c.s.nnc, nc = c.s.ncon, ld = c.S.jld;
   Warp::for_each(ne, [&](int r) {
     const T is = trsqrt(tmax(w[c.S.diag + r] + w[c.S.reg + r], T(kMinval)));
     w[c.S.invs + r] = is;
@@ -289,7 +344,7 @@ HD void dual_solve(const Ctx<T>& c) {
   });
   Warp::for_each(c.s.pyramidal ? 0 : nc, [&](int ci) {
     const T mu = c.mf[c.L.fc + CF * ci];
-    w[c.S.muc + ci] = mu * w[c.S.invs + nlim + ci] / tmax(w[c.S.invs + nlim + nc + ci], T(kMinval));
+    w[c.S.muc + ci] = mu * w[c.S.invs + nnc + ci] / tmax(w[c.S.invs + nnc + nc + ci], T(kMinval));
   });
   // Collatz-Wielandt bound from one |A| apply on the carried probe, or on a
   // cold one after three normalised warm-up applies from ones
@@ -372,9 +427,13 @@ HD void integrate_pos(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, T h) {
 }
 
 // One physics step in place on this rollout's (qpos, qvel, fw, cwv); every
-// lane of the warp calls it.
+// lane of the warp calls it. Forced inline: left to the compiler it became a
+// call once the pair dispatch was inlined into it, and as a call it takes its
+// context by reference from the stack, so every read of a size or offset in
+// the hot loops becomes a local-memory load (K1 and K2 ran far slower; see
+// chip_profile.py inline).
 template <typename T>
-HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
+HD_FORCEINLINE void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
   T* const w = c.w.p;
   const Lane<T> qpos = c.w.at(c.S.qpos), qvel = c.w.at(c.S.qvel);
   const int nv = c.s.nv;
@@ -389,6 +448,7 @@ HD void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
   island_inverse(c, c.S.M, c.S.Minv);
   island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
   Warp::single([&] { sensors(c, qpos, qvel, sens_out); });
+  distance_sensors(c, sens_out);
   if (c.s.nefc > 0) {
     narrowphase(c);
     assemble(c, qpos, qvel);

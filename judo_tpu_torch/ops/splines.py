@@ -63,3 +63,18 @@ def eval_spline(ts: torch.Tensor, knots: torch.Tensor, tq: torch.Tensor, order: 
         c3 = -2.0 * dy + s0 + s1
         return y0 + x * (s0 + x * (c2 + x * c3))
     raise ValueError(f"unknown spline order: {order}")
+
+
+def interp_linear(old_ts: torch.Tensor, values: torch.Tensor, new_ts: torch.Tensor) -> torch.Tensor:
+    """Linear re-interpolation of values (..., N, nu) at times old_ts (N,)
+    onto new_ts (M,), extrapolating linearly past both ends (scipy's
+    interp1d(kind="linear", fill_value="extrapolate"); CEM carries its sigma
+    across a change of num_nodes with it)."""
+    n = old_ts.shape[0]
+    idx = _interval_index(old_ts, new_ts, n - 2)
+    t0 = old_ts[idx]
+    h = old_ts[idx + 1] - t0
+    y0 = torch.index_select(values, -2, idx)
+    y1 = torch.index_select(values, -2, idx + 1)
+    x = ((new_ts - t0) / h)[:, None]
+    return y0 + (y1 - y0) * x

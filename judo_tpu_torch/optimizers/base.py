@@ -69,8 +69,23 @@ class Optimizer(Generic[OptimizerConfigT]):
         n = self.num_nodes
         return self.config.noise_ramp * torch.linspace(1.0 / n, 1.0, n, dtype=dtype, device=device)[:, None]
 
-    def sample(self, params: Any, state: Any, nominal: torch.Tensor, generator: torch.Generator):
+    def sample_from_noise(self, params: Any, state: Any, nominal: torch.Tensor, noise: torch.Tensor):
         raise NotImplementedError
+
+    def sample(self, params: Any, state: Any, nominal: torch.Tensor, generator: torch.Generator):
+        """Draw standard normal noise (R - 1, N, nu) and sample from it."""
+        noise = torch.randn(
+            (self.num_rollouts - 1, self.num_nodes, self.nu),
+            generator=generator, dtype=nominal.dtype, device=nominal.device,
+        )
+        return self.sample_from_noise(params, state, nominal, noise)
 
     def update(self, params: Any, state: Any, samples: torch.Tensor, rewards: torch.Tensor):
         raise NotImplementedError
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of x, largest first, the lower index
+    first among equal values (jax.lax.top_k's order; torch.topk leaves ties
+    unordered)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]

@@ -35,13 +35,6 @@ class MPPI(Optimizer[MPPIConfig]):
         noised = nominal[None] + sigma * noise
         return torch.cat([nominal[None], noised], dim=0), state
 
-    def sample(self, params: Any, state: Any, nominal: torch.Tensor, generator: torch.Generator):
-        noise = torch.randn(
-            (self.num_rollouts - 1, self.num_nodes, self.nu),
-            generator=generator, dtype=nominal.dtype, device=nominal.device,
-        )
-        return self.sample_from_noise(params, state, nominal, noise)
-
     def update(self, params: Any, state: Any, samples: torch.Tensor, rewards: torch.Tensor):
         """exp(-(cost - min) / temperature)-weighted knot average."""
         costs = -rewards

@@ -32,11 +32,16 @@ from judo_tpu_torch.physics.lane_step import implicit_damping_np, kb_from_solref
 from judo_tpu_torch.physics.model import (
     GEOM_BOX,
     GEOM_CAPSULE,
+    GEOM_CYLINDER,
     GEOM_PLANE,
     GEOM_SPHERE,
+    OBJ_BODY,
+    SENSOR_DISTANCE,
     SLOTS_PER_PAIR,
     PhysicsModel,
     contact_rows_per,
+    distance_sensor_pairs,
+    joint_equalities,
     lane_supported,
     limit_joints,
     num_constraint_rows,
@@ -49,7 +54,12 @@ PAIR_KINDS = {
     (GEOM_PLANE, GEOM_SPHERE): 2,
     (GEOM_PLANE, GEOM_CAPSULE): 3,
     (GEOM_PLANE, GEOM_BOX): 4,
+    (GEOM_CAPSULE, GEOM_CAPSULE): 5,
+    (GEOM_CYLINDER, GEOM_CYLINDER): 6,
+    (GEOM_CYLINDER, GEOM_BOX): 7,
 }
+# Kinds of the rows before the contact block (csrc/jt_common.cuh).
+ROW_LIMIT, ROW_EQUALITY = 0, 1
 
 
 class JtSizes(ctypes.Structure):
@@ -59,7 +69,8 @@ class JtSizes(ctypes.Structure):
         (name, ctypes.c_int)
         for name in (
             "B", "T", "substeps", "iterations", "pyramidal", "cold", "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite",
-            "nsensor", "nsensordata", "nlim", "npair", "ncon", "nefc", "nisl", "nu_", "ns_", "nefc_",
+            "nsensor", "nsensordata", "nnc", "npair", "ncon", "nefc", "nisl", "ndist", "ndpair", "nu_", "ns_",
+            "nefc_",
         )
     ]
 
@@ -162,12 +173,22 @@ def pack_model(m: PhysicsModel) -> dict:
               m.sensor_reftype[i], m.sensor_refid[i]]
     ts = float(f64("timestep"))
     jr, jm, jsr, jsi, inv_dof = f64("jnt_range"), f64("jnt_margin"), f64("jnt_solref"), f64("jnt_solimp"), f64("dof_invweight0")
-    floats_lim = []
+    floats_row = []
+    for e in joint_equalities(m):
+        j1, j2 = m.eq_obj1id[e], m.eq_obj2id[e]
+        q1, d1 = m.jnt_qposadr[j1], m.jnt_dofadr[j1]
+        q2, d2 = (m.jnt_qposadr[j2], m.jnt_dofadr[j2]) if j2 >= 0 else (-1, -1)
+        si = f64("eq_solimp")[e]
+        k, bb = kb_from_solref_np(f64("eq_solref")[e], si, ts)
+        inv_w = inv_dof[d1] + inv_dof[d2] if j2 >= 0 else inv_dof[d1]
+        for side in (1.0, -1.0):
+            I += [ROW_EQUALITY, q1, d1, q2, d2]
+            floats_row.append([side, q0[q1], q0[q2] if j2 >= 0 else 0.0, *si, k, bb, inv_w, *f64("eq_data")[e, :5]])
     for j in limit_joints(m):
         k, bb = kb_from_solref_np(jsr[j], jsi[j], ts)
         for side, rng in ((1.0, jr[j, 0]), (-1.0, jr[j, 1])):
-            I += [m.jnt_qposadr[j], m.jnt_dofadr[j]]
-            floats_lim.append([side, rng, jm[j], *jsi[j], k, bb, inv_dof[m.jnt_dofadr[j]]])
+            I += [ROW_LIMIT, m.jnt_qposadr[j], m.jnt_dofadr[j], -1, -1]
+            floats_row.append([side, rng, jm[j], *jsi[j], k, bb, inv_dof[m.jnt_dofadr[j]], 0.0, 0.0, 0.0, 0.0, 0.0])
     floats_pair, slot_i, floats_slot = [], [], []
     size = f64("geom_size")
     bi = f64("body_invweight0")
@@ -193,20 +214,34 @@ def pack_model(m: PhysicsModel) -> dict:
     islands = dof_islands(m)
     for s, e in islands:
         I += [s, e - s]
+    # distance sensors: each its list of geom pairs (fixed by the model)
+    dist_i, floats_dist, dpair_i, floats_dpair = [], [], [], []
+    for i in range(m.nsensor):
+        if m.sensor_type[i] != SENSOR_DISTANCE or m.sensor_objtype[i] != OBJ_BODY:
+            continue
+        pairs = distance_sensor_pairs(m, i)
+        dist_i += [m.sensor_adr[i], len(dpair_i) // 4, len(pairs)]
+        floats_dist.append([f64("sensor_cutoff")[i]])
+        for a, b in pairs:
+            sig = (m.geom_type[a], m.geom_type[b])
+            dpair_i += [PAIR_KINDS[sig], a, b, SLOTS_PER_PAIR[sig]]
+            floats_dpair.append([*size[a], *size[b]])
+    I += dist_i + dpair_i
     I += [int(v) for v in np.asarray(m.body_dof_mask).reshape(-1)]
-    for block in (floats_body, floats_jnt, floats_dof, floats_geom, floats_site, floats_act, floats_lim,
-                  floats_pair, floats_slot):
+    for block in (floats_body, floats_jnt, floats_dof, floats_geom, floats_site, floats_act, floats_row,
+                  floats_pair, floats_slot, floats_dist, floats_dpair):
         for rec in block:
             F += [float(x) for x in rec]
     nefc = num_constraint_rows(m)
-    assert nefc == len(floats_lim) + contact_rows_per(m) * ncon, (nefc, len(floats_lim), ncon)
+    assert nefc == len(floats_row) + contact_rows_per(m) * ncon, (nefc, len(floats_row), ncon)
     packed = {
         "mi": np.asarray(I, np.int32),
         "mf": np.asarray(F, np.float64),
         "counts": dict(
             nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom, nsite=m.nsite,
-            nsensor=m.nsensor, nsensordata=m.nsensordata, nlim=len(floats_lim), npair=npair, ncon=ncon,
-            nefc=nefc, nisl=len(islands), nu_=max(m.nu, 1), ns_=max(m.nsensordata, 1), nefc_=max(nefc, 1),
+            nsensor=m.nsensor, nsensordata=m.nsensordata, nnc=len(floats_row), npair=npair, ncon=ncon,
+            nefc=nefc, nisl=len(islands), ndist=len(floats_dist), ndpair=len(floats_dpair), nu_=max(m.nu, 1),
+            ns_=max(m.nsensordata, 1), nefc_=max(nefc, 1),
         ),
     }
     m._packed["packed"] = packed

@@ -3,9 +3,10 @@
 (P, ..., B) for the P candidate pairs of one pair type.
 
 Ported pair types: plane-sphere (1 slot), plane-capsule (2), plane-box (4),
-capsule-box (2) and box-box (4), the ones the leap and Spot planning models
-use. Dynamic selections (separating axis, deepest points) are rank one-hots
-over comparison masks, as in the JAX package.
+capsule-capsule (1), capsule-box (2), cylinder-cylinder (2), cylinder-box (2)
+and box-box (4), the ones the leap, Spot (navigate), cylinder_push and fr3
+planning models use. Dynamic selections (separating axis, deepest points) are
+rank one-hots over comparison masks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +16,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from judo_tpu_torch.physics.model import GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, PhysicsModel
+from judo_tpu_torch.physics import lane_engine as le
+from judo_tpu_torch.physics.model import (
+    GEOM_BOX,
+    GEOM_CAPSULE,
+    GEOM_CYLINDER,
+    GEOM_PLANE,
+    GEOM_SPHERE,
+    PhysicsModel,
+)
 
 _BIG = 1e10
 
@@ -172,6 +181,73 @@ def _k_capsule_box(x1, m1, s1, x2, m2, s2):
         w = (ranks == s).to(x1.dtype)
         out.append((torch.sum(w * dists, 0), torch.sum(w[:, :, None] * pts, 0), torch.sum(w[:, :, None] * normals, 0)))
     return out
+
+
+def _safe_unit(v, fallback, eps: float = 1e-9):
+    """v / |v| where |v| > eps, else ``fallback`` ((P, 3, B) both)."""
+    n = torch.sqrt(torch.clamp(le.l_dot3(v, v), min=1e-24))
+    return torch.where((n > eps)[:, None], v / n[:, None], fallback)
+
+
+def _segment_segment(p1, q1, p2, q2):
+    """Closest points of segments p1-q1 and p2-q2 (lane_collision._segment_segment)."""
+    d1, d2, r = q1 - p1, q2 - p2, p1 - p2
+    a, e, f = le.l_dot3(d1, d1), le.l_dot3(d2, d2), le.l_dot3(d2, r)
+    c, b = le.l_dot3(d1, r), le.l_dot3(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(denom > 1e-12, torch.clamp((b * f - c * e) / torch.clamp(denom, min=1e-12), 0.0, 1.0),
+                    torch.zeros_like(denom))
+    t_cl = torch.clamp((b * s + f) / torch.clamp(e, min=1e-12), 0.0, 1.0)
+    s = torch.clamp((b * t_cl - c) / torch.clamp(a, min=1e-12), 0.0, 1.0)
+    return p1 + s[:, None] * d1, p2 + t_cl[:, None] * d2
+
+
+def _k_capsule_capsule(x1, m1, s1, x2, m2, s2):
+    """1-slot capsule-capsule (lane_collision._k_capsule_capsule): the
+    closest points of the two segments."""
+    a1, a2 = m1[:, :, 2], m2[:, :, 2]
+    h1, h2 = s1[:, 1, None, None], s2[:, 1, None, None]
+    p1c, p2c = _segment_segment(x1 - h1 * a1, x1 + h1 * a1, x2 - h2 * a2, x2 + h2 * a2)
+    delta = p2c - p1c
+    dn = torch.sqrt(torch.clamp(le.l_dot3(delta, delta), min=1e-24))
+    ez = torch.zeros_like(delta)
+    ez[:, 2] = 1.0
+    n = _safe_unit(delta, ez)
+    d = dn - s1[:, 0:1] - s2[:, 0:1]
+    return [(d, p1c + n * (s1[:, 0:1] + 0.5 * d)[:, None], n)]
+
+
+def _k_cylinder_cylinder(x1, m1, s1, x2, m2, s2):
+    """2-slot cylinder-cylinder (lane_collision._k_cylinder_cylinder): the
+    radial contact of near-parallel cylinders whose heights overlap, at both
+    ends of the overlap; any other pose puts _BIG in both slots."""
+    a1 = m1[:, :, 2]
+    delta = x2 - x1
+    h = le.l_dot3(delta, a1)
+    radial = delta - a1 * h[:, None]
+    rn = torch.sqrt(torch.clamp(le.l_dot3(radial, radial), min=1e-24))
+    n = _safe_unit(radial, m1[:, :, 0])
+    parallel = torch.abs(le.l_dot3(a1, m2[:, :, 2])) > 0.99
+    overlap = torch.abs(h) < (s1[:, 1:2] + s2[:, 1:2])
+    d_radial = rn - s1[:, 0:1] - s2[:, 0:1]
+    d = torch.where(parallel & overlap, d_radial, torch.full_like(d_radial, _BIG))
+    h_lo = torch.maximum(-s1[:, 1:2].expand_as(h), h - s2[:, 1:2])
+    h_hi = torch.minimum(s1[:, 1:2].expand_as(h), h + s2[:, 1:2])
+    radial_pos = x1 + n * (s1[:, 0:1] + 0.5 * d_radial)[:, None]
+    return [(d, radial_pos + a1 * h_hi[:, None], n), (d, radial_pos + a1 * h_lo[:, None], n)]
+
+
+def _cyl_correction(d, n, axis, r):
+    """Distance correction of a capsule's rounded end to a cylinder's rim."""
+    na = torch.clamp(torch.abs(le.l_dot3(n, axis)), 0.0, 1.0)
+    return d + r * (1.0 - torch.sqrt(torch.clamp(1.0 - na * na, min=0.0)))
+
+
+def _k_cylinder_box(x1, m1, s1, x2, m2, s2):
+    """2-slot cylinder-box (lane_collision._k_cylinder_box): capsule-box of
+    the cylinder's axis, each slot's distance corrected to the rim."""
+    axis = m1[:, :, 2]
+    return [(_cyl_correction(d, n, axis, s1[:, 0:1]), p, n) for d, p, n in _k_capsule_box(x1, m1, s1, x2, m2, s2)]
 
 
 def _k_box_box(x1, m1, s1, x2, m2, s2):
@@ -346,7 +422,10 @@ _L_KERNELS = {
     (GEOM_PLANE, GEOM_SPHERE): _k_plane_sphere,
     (GEOM_PLANE, GEOM_CAPSULE): _k_plane_capsule,
     (GEOM_PLANE, GEOM_BOX): _k_plane_box,
+    (GEOM_CAPSULE, GEOM_CAPSULE): _k_capsule_capsule,
     (GEOM_CAPSULE, GEOM_BOX): _k_capsule_box,
+    (GEOM_CYLINDER, GEOM_CYLINDER): _k_cylinder_cylinder,
+    (GEOM_CYLINDER, GEOM_BOX): _k_cylinder_box,
     (GEOM_BOX, GEOM_BOX): _k_box_box,
 }
 

@@ -2,9 +2,10 @@
 lanes step in plain PyTorch (counterpart of ``judo_tpu/physics/lane_step.py``).
 
 ``step_l`` advances a batch of rollouts one physics step, batch-last. Row
-order matches the JAX package: joint limits, then the contact rows. Elliptic
-cones give them grouped as [normals | t1 | t2]; pyramidal cones give four
-facet rows per contact, contact-major [n+mu t1, n-mu t1, n+mu t2, n-mu t2].
+order matches the JAX package: joint equalities (a +/- row pair each), joint
+limits, then the contact rows. Elliptic cones give the contact rows grouped as
+[normals | t1 | t2]; pyramidal cones give four facet rows per contact,
+contact-major [n+mu t1, n-mu t1, n+mu t2, n-mu t2].
 Only the Collatz-Wielandt ("cw") Lipschitz bound is ported; contractions over
 constraint rows are plain sums.
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from judo_tpu_torch.physics import lane_engine as le
-from judo_tpu_torch.physics.lane_collision import LaneContacts, find_contacts_l, tangent_frame_l
+from judo_tpu_torch.physics.lane_collision import _L_KERNELS, LaneContacts, find_contacts_l, tangent_frame_l
 from judo_tpu_torch.physics.model import (
     BALL,
     FREE,
@@ -26,6 +27,7 @@ from judo_tpu_torch.physics.model import (
     OBJ_BODY,
     OBJ_SITE,
     OBJ_XBODY,
+    SENSOR_DISTANCE,
     SENSOR_FRAMEPOS,
     SENSOR_FRAMEQUAT,
     SENSOR_FRAMEXAXIS,
@@ -35,6 +37,8 @@ from judo_tpu_torch.physics.model import (
     SENSOR_JOINTVEL,
     SLIDE,
     PhysicsModel,
+    distance_sensor_pairs,
+    joint_equalities,
     lane_supported,
     limit_joints,
     num_constraint_rows,
@@ -78,6 +82,23 @@ def kb_from_solref_np(solref: np.ndarray, solimp: np.ndarray, timestep: float) -
     return k, b
 
 
+def joint_equality_terms(m: PhysicsModel, e: int, qpos: torch.Tensor) -> tuple:
+    """(dof of joint 1, violation, slope or None, invweight) of joint
+    equality ``e``: q1 - q1_0 = poly(q2 - q2_0), a quartic in the second
+    joint's displacement (a constant without a second joint)."""
+    qpos0, inv = m.np64("qpos0"), m.np64("dof_invweight0")
+    c = [float(v) for v in m.np64("eq_data")[e]]
+    j1, j2 = m.eq_obj1id[e], m.eq_obj2id[e]
+    q1, d1 = m.jnt_qposadr[j1], m.jnt_dofadr[j1]
+    if j2 < 0:
+        return d1, (qpos[q1] - float(qpos0[q1])) - c[0], None, float(inv[d1])
+    q2, d2 = m.jnt_qposadr[j2], m.jnt_dofadr[j2]
+    dq2 = qpos[q2] - float(qpos0[q2])
+    poly = c[0] + dq2 * (c[1] + dq2 * (c[2] + dq2 * (c[3] + dq2 * c[4])))
+    dpoly = c[1] + dq2 * (2 * c[2] + dq2 * (3 * c[3] + dq2 * 4 * c[4]))
+    return d1, (qpos[q1] - float(qpos0[q1])) - poly, dpoly, float(inv[d1] + inv[d2])
+
+
 class LaneRows(NamedTuple):
     J: torch.Tensor  # (nefc, nv, B)
     aref: torch.Tensor  # (nefc, B)
@@ -89,7 +110,7 @@ class LaneRows(NamedTuple):
 def assemble_constraints_l(
     m: PhysicsModel, com: le.LaneCom, contacts: LaneContacts | None, qpos: torch.Tensor, qvel: torch.Tensor
 ) -> LaneRows | None:
-    """Joint-limit and contact rows (elliptic or pyramidal), batch-last."""
+    """Joint-equality, joint-limit and contact rows (elliptic or pyramidal), batch-last."""
     B = qvel.shape[-1]
     dev, dtype = qvel.device, qvel.dtype
     ts = float(m.np64("timestep"))
@@ -98,6 +119,26 @@ def assemble_constraints_l(
     jnt_solref, jnt_solimp = m.np64("jnt_solref"), m.np64("jnt_solimp")
     ones = qvel.new_ones(B)
     rows_J, rows_aref, rows_reg, rows_active, rows_diag = [], [], [], [], []
+
+    for e in joint_equalities(m):
+        d1, pos, dpoly, inv_w = joint_equality_terms(m, e, qpos)
+        row = qvel.new_zeros((m.nv, B))
+        row[d1] = 1.0
+        vel = qvel[d1]
+        if dpoly is not None:
+            d2 = m.jnt_dofadr[m.eq_obj2id[e]]
+            row[d2] = -dpoly
+            vel = vel - dpoly * qvel[d2]
+        solimp = m.np64("eq_solimp")[e]
+        imp = impedance_l(solimp, pos)
+        k, b = kb_from_solref_np(m.np64("eq_solref")[e], solimp, ts)
+        reg = (1.0 - imp) / torch.clamp(imp, min=_MINIMP) * inv_w
+        for sgn in (1.0, -1.0):
+            rows_J.append(sgn * row)
+            rows_aref.append(sgn * (-b * vel - k * imp * pos))
+            rows_reg.append(reg)
+            rows_active.append(ones)
+            rows_diag.append(inv_w * ones)
 
     for j in limit_joints(m):
         qadr, dadr = m.jnt_qposadr[j], m.jnt_dofadr[j]
@@ -317,6 +358,20 @@ def integrate_pos_l(m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, h: 
     return out
 
 
+def distance_sensor_l(m: PhysicsModel, kin: le.LaneKin, i: int) -> torch.Tensor:
+    """Distance sensor ``i`` (mjSENS_GEOMDIST between two bodies): the least of
+    its cutoff and every slot distance of its geom pairs, (B,)."""
+    size = m.np64("geom_size")
+    out = kin.geom_xpos[0].new_full(kin.geom_xpos.shape[-1:], float(m.np64("sensor_cutoff")[i]))
+    for a, b in distance_sensor_pairs(m, i):
+        s1, s2 = (torch.as_tensor(size[g][None], dtype=out.dtype, device=out.device) for g in (a, b))
+        kernel = _L_KERNELS[(m.geom_type[a], m.geom_type[b])]
+        for d, _, _ in kernel(kin.geom_xpos[a][None], kin.geom_xmat[a][None], s1, kin.geom_xpos[b][None],
+                              kin.geom_xmat[b][None], s2):
+            out = torch.minimum(out, d[0])
+    return out
+
+
 def evaluate_sensors_l(m: PhysicsModel, kin: le.LaneKin, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
     """Flat (nsensordata, B) sensordata; uncovered sensor types read zero."""
     out = qpos.new_zeros((m.nsensordata, qpos.shape[-1]))
@@ -343,6 +398,8 @@ def evaluate_sensors_l(m: PhysicsModel, kin: le.LaneKin, qpos: torch.Tensor, qve
             refid = m.sensor_refid[i]
             if val is not None and refid >= 0 and m.sensor_reftype[i] == OBJ_SITE:
                 val = torch.sum(kin.site_xmat[refid] * (val - kin.site_xpos[refid])[:, None], dim=0)
+        elif st == SENSOR_DISTANCE and ot == OBJ_BODY:
+            val = distance_sensor_l(m, kin, i)[None]
         elif st in (SENSOR_FRAMEXAXIS, SENSOR_FRAMEYAXIS, SENSOR_FRAMEZAXIS):
             c = st - SENSOR_FRAMEXAXIS
             if ot == OBJ_SITE:

@@ -55,7 +55,10 @@ SLOTS_PER_PAIR = {
     (GEOM_PLANE, GEOM_SPHERE): 1,
     (GEOM_PLANE, GEOM_CAPSULE): 2,
     (GEOM_PLANE, GEOM_BOX): 4,
+    (GEOM_CAPSULE, GEOM_CAPSULE): 1,
     (GEOM_CAPSULE, GEOM_BOX): 2,
+    (GEOM_CYLINDER, GEOM_CYLINDER): 2,
+    (GEOM_CYLINDER, GEOM_BOX): 2,
     (GEOM_BOX, GEOM_BOX): 4,
 }
 
@@ -279,10 +282,34 @@ def limit_joints(m: PhysicsModel) -> list:
     return [j for j in range(m.njnt) if m.jnt_limited[j] and m.jnt_type[j] in (SLIDE, HINGE)]
 
 
+def joint_equalities(m: PhysicsModel) -> list:
+    """Joint equalities, in row order (one +/- row pair each)."""
+    return [e for e in range(m.neq) if m.eq_type[e] == EQ_JOINT]
+
+
 def num_noncontact_rows(m: PhysicsModel) -> int:
     """Rows before the contact block: joint equalities and limits."""
-    neq_joint = sum(1 for e in range(m.neq) if m.eq_type[e] == EQ_JOINT)
-    return 2 * neq_joint + 2 * len(limit_joints(m))
+    return 2 * len(joint_equalities(m)) + 2 * len(limit_joints(m))
+
+
+def distance_sensor_pairs(m: PhysicsModel, i: int) -> list:
+    """Geom pairs (a, b) whose slot distances distance sensor ``i`` (two
+    bodies) takes the minimum of, in the order and orientation of
+    judo_tpu/physics/lane_step.py:_distance_sensor_l: a pair of two geoms of
+    one type enters in both orientations, and a pair type with no narrowphase
+    in the JAX package is left out, as there."""
+    body1, body2 = m.sensor_objid[i], m.sensor_refid[i]
+    bid, gt = m.geom_bodyid, m.geom_type
+    pairs = []
+    for g1 in range(m.ngeom):
+        if bid[g1] not in (body1, body2):
+            continue
+        for g2 in range(m.ngeom):
+            if bid[g2] != (body2 if bid[g1] == body1 else body1) or bid[g1] == bid[g2]:
+                continue
+            if gt[g1] <= gt[g2] and (gt[g1], gt[g2]) in _NUM_SLOTS:
+                pairs.append((g1, g2))
+    return pairs
 
 
 def contact_rows_per(m: PhysicsModel) -> int:
@@ -304,11 +331,18 @@ def lane_supported(m: PhysicsModel) -> None:
         bad = [p for p in pairs if p not in SLOTS_PER_PAIR]
         if bad:
             missing.append(f"collision pair types {bad} (ported: {sorted(SLOTS_PER_PAIR)})")
-    if m.neq:
-        missing.append(f"equality constraints of types {sorted(set(m.eq_type))}")
-    sens = sorted({t for t in m.sensor_type if t == SENSOR_DISTANCE})
-    if sens:
-        missing.append(f"sensor types {sens}")
+    eq_other = sorted({t for t in m.eq_type if t != EQ_JOINT})
+    if eq_other:
+        missing.append(f"equality constraints of types {eq_other}")
+    for i in range(m.nsensor):
+        if m.sensor_type[i] != SENSOR_DISTANCE:
+            continue
+        if m.sensor_objtype[i] != OBJ_BODY or m.sensor_reftype[i] != OBJ_BODY:
+            missing.append(f"distance sensor {i} between objects other than two bodies")
+            continue
+        bad = sorted({(m.geom_type[a], m.geom_type[b]) for a, b in distance_sensor_pairs(m, i)} - set(SLOTS_PER_PAIR))
+        if bad:
+            missing.append(f"distance sensor {i} over pair types {bad} (ported: {sorted(SLOTS_PER_PAIR)})")
     stiff = np.asarray(m.jnt_stiffness, np.float64)
     for j in range(m.njnt):
         if m.jnt_type[j] in (FREE, BALL) and stiff[j] != 0.0:

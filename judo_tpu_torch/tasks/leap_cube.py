@@ -51,22 +51,27 @@ class LeapCubeConfig(TaskConfig):
 
 class LeapCube(Task[LeapCubeConfig]):
     """Rotate the cube in-hand to track goal orientations; the goal arrives
-    through sim metadata ("goal_quat"), identity when absent."""
+    through sim metadata ("goal_quat"), identity when absent. The scene
+    variants (leap_cube_down, caltech_leap_cube) set ``name``, ``qpos_home``
+    and ``goal_position``; ``name`` also picks the MJCF variant."""
 
     name: str = "leap_cube"
     config_t: type[LeapCubeConfig] = LeapCubeConfig
+    qpos_home_default: np.ndarray = QPOS_HOME
+    goal_position: tuple = (0.0, 0.03, 0.1)
 
     def __init__(self, device: Any = "cuda", dtype: torch.dtype = torch.float32) -> None:
         super().__init__(device=device, dtype=dtype)
-        self.goal_pos = np.array([0.0, 0.03, 0.1])
+        self.goal_pos = np.array(self.goal_position)
         self.qpos_home = np.asarray(self.extras["qpos_home"], np.float64)
         self.reset_command = np.asarray(self.extras["reset_command"], np.float64)
         self.reset()
 
     @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
-        m, extras = model_from_mujoco(leap_cube_xml(), cls.planning_solver_iterations)
-        return m, {**extras, "qpos_home": QPOS_HOME, "reset_command": QPOS_HOME[7:].copy()}
+        m, extras = model_from_mujoco(leap_cube_xml(cls.name), cls.planning_solver_iterations)
+        home = cls.qpos_home_default
+        return m, {**extras, "qpos_home": home, "reset_command": home[7:].copy()}
 
     def reward(self, states, sensors, controls, params, system_metadata=None) -> torch.Tensor:
         """Position + SO(3) log-map orientation tracking, averaged over time."""

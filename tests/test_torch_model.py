@@ -19,12 +19,11 @@ import pytest
 
 from judo_tpu.models.leap import leap_cube_xml_path
 from judo_tpu.physics import put_model as jax_put_model
-from judo_tpu.tasks.spot.spot_navigate import SpotNavigate as JaxSpotNavigate
 from judo_tpu.physics.solver import num_constraint_rows as jax_nefc
 from judo_tpu.physics.solver import num_noncontact_rows as jax_noncontact
+from judo_tpu.tasks import get_registered_tasks as jax_registered_tasks
 from judo_tpu_torch.physics import model as tm
-from judo_tpu_torch.tasks.leap_cube import LeapCube
-from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+from judo_tpu_torch.tasks import CaltechLeapCube, Cartpole, CylinderPush, FR3Pick, LeapCube, LeapCubeDown, SpotNavigate
 
 from .test_physics.test_parity import CARTPOLE, SPHERE_PLANE
 
@@ -104,21 +103,17 @@ def test_lane_supported_raises_naming_pairs():
     tm.lane_supported(sphere_plane)
 
 
-@pytest.mark.parametrize("task", [LeapCube, SpotNavigate])
+@pytest.mark.parametrize("task", [LeapCube, SpotNavigate, Cartpole, CylinderPush, FR3Pick, LeapCubeDown, CaltechLeapCube])
 def test_committed_snapshot_is_current(task):
     """The snapshot the GPU machine plans from equals a fresh export and the
-    JAX package's planning model."""
+    JAX package's planning model of the same task."""
     fresh = task.snapshot()
     with np.load(task.snapshot_path(), allow_pickle=False) as z:
         assert sorted(z.files) == sorted(fresh)
         for k in z.files:
             np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
     m, _ = tm.load_snapshot(task.snapshot_path(), dtype=np.float32)
-    if task is LeapCube:
-        jm = jax_put_model(_leap_mj(), dtype=jnp.float32, solver_iterations=25)
-    else:
-        jm = JaxSpotNavigate().planning_model
-    _assert_same_model(m, jm)
+    _assert_same_model(m, jax_registered_tasks()[task.name][0]().planning_model)
 
 
 def test_imports_and_rolls_out_without_jax():

@@ -11,6 +11,7 @@ The solve runs in float64 with 4 rollouts and the horizon cut to 0.08 s
 
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,7 +56,24 @@ def test_weights_equal_jax_policy(port_spot):
         assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
 
 
-def test_observation_mlp_ctrl_match_jax(port_spot):
+@pytest.fixture
+def pinned_numerics():
+    """Pin, for one test, the process state a float64 comparison with the JAX
+    package rests on, and restore it after: float64 enabled in JAX, JAX's
+    persistent compilation cache off (no executable written by another
+    process of the run), and one torch thread (one summation order in the
+    BLAS whatever the load on the machine)."""
+    saved = (jax.config.jax_enable_x64, jax.config.jax_enable_compilation_cache, torch.get_num_threads())
+    jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_compilation_cache", False)
+    torch.set_num_threads(1)
+    yield
+    jax.config.update("jax_enable_x64", saved[0])
+    jax.config.update("jax_enable_compilation_cache", saved[1])
+    torch.set_num_threads(saved[2])
+
+
+def test_observation_mlp_ctrl_match_jax(port_spot, pinned_numerics):
     rng = np.random.default_rng(0)
     B = 5
     qp = np.tile(port_spot.qpos, (B, 1)).T + 0.05 * rng.standard_normal((26, B))
@@ -67,10 +85,15 @@ def test_observation_mlp_ctrl_match_jax(port_spot):
     t = lambda *xs: [torch.tensor(x) for x in xs]  # noqa: E731
     obs = tp.build_observation_l(*t(qp, qv, cmd, po))
     np.testing.assert_allclose(obs.numpy(), np.asarray(jpl.build_observation_l(*j(qp, qv, cmd, po))), atol=1e-12, rtol=0)
-    lp = jpl.lanes_policy_params(JaxSpotPolicy.load(), jnp.float64)
+    lp = jax.block_until_ready(jpl.lanes_policy_params(JaxSpotPolicy.load(), jnp.float64))
+    # JAX gets its own copy of the observation: no JAX buffer aliases torch's memory
+    ref = np.asarray(jax.block_until_ready(jpl.mlp_aug_l(lp, jnp.asarray(obs.numpy().copy()))))
+    assert ref.dtype == np.float64 and all(w.dtype == jnp.float64 for w in lp.waugs)
     pout = tp.mlp_l(port_spot.policy, obs)
-    np.testing.assert_allclose(pout.numpy(), np.asarray(jpl.mlp_aug_l(lp, jnp.asarray(obs.numpy()))), atol=1e-10, rtol=0)
-    np.testing.assert_allclose(port_spot.policy(obs.T).T.numpy(), pout.numpy(), atol=0, rtol=0)
+    np.testing.assert_allclose(pout.numpy(), ref, atol=1e-10, rtol=0)
+    # forward() repeats these products on a view: the same order is not guaranteed (the BLAS may take
+    # another path for other threads or memory alignment), so the two agree to rounding, not bitwise
+    np.testing.assert_allclose(port_spot.policy(obs.T).T.numpy(), pout.numpy(), atol=1e-12, rtol=0)
     ctrl = tp.control_from_policy_l(pout, torch.tensor(cmd))
     ref = jpl.control_from_policy_l(jnp.asarray(pout.numpy()), jnp.asarray(cmd))
     np.testing.assert_allclose(ctrl.numpy(), np.asarray(ref), atol=1e-12, rtol=0)
