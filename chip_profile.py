@@ -6,6 +6,9 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_profile.py unroll   # the kernels against copies with loops unrolled or not
     python3 chip_profile.py horizon  # full-horizon kernel vs plain, and whole solve sequences
     python3 chip_profile.py inline   # the kernels against copies inlined otherwise
+    python3 chip_profile.py compare DIR  # the kernels against those of another checkout
+    python3 chip_profile.py layout   # the kernels against a copy that picks J's place at run time
+    python3 chip_profile.py dispatch # where a pipelined planner's host waits
 
 stages, unroll and inline copy judo_tpu_torch/csrc into
 build/profile/<variant>/, patch the copy (the committed sources stay as they
@@ -32,12 +35,26 @@ T 252.
   float64 and float32, printing the last solve's rewards. It uses only what
   chip_smoke.py has had since the Spot path was ported, so a copy of this
   file runs it in an older checkout too, for a comparison of two trees.
+- layout: times the checkout's kernels, built once for each place of J
+  (shared or global memory, a template parameter), against a copy whose
+  step body picks J's place at run time from the sizes, in the order base,
+  A, A, base within one process.
+- dispatch: leap_cube + MPPI (320 rollouts, f32) at pipeline_depth 2, the
+  dispatch and total host time of each of the first 25 calls; then how many
+  small launches the host can queue behind a long kernel before a launch
+  waits (torch.cuda._sleep holds the card).
+- compare DIR: K1 (leap B 320, T 100; fr3_pick B 64, T 252) and K2 (Spot R
+  24, T 100 x 2, and with no physics substeps) of the checkout DIR (an older
+  one, unpacked with git archive) against this checkout's, each timed by its
+  own chip_profile.py's main_shapes in a process of its own, in the order
+  DIR, this, this, DIR. Both trees' kernels are built first, in parallel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -115,6 +132,10 @@ PATCHES = {
     "step a call, pair dispatch inlined": [("jt_step.cuh", "HD_FORCEINLINE void step(", "HD void step("),
                                            ("jt_collision.cuh", "HD_NOINLINE void pair_contacts(",
                                             "HD void pair_contacts(")],
+    "J place at run time": [
+        ("jt_step.cuh", "  c.J = JG ? jslab + (int64_t)b * c.S.jsize : work + c.S.J;",
+         "  c.J = s.jglobal ? jslab + (int64_t)b * c.S.jsize : work + c.S.J;"),
+    ],
     "J passes unrolled": [
         ("jt_step.cuh", "    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];",
          "#pragma unroll 8\n    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];"),
@@ -241,6 +262,67 @@ def _build_log() -> str:
     return _build.build_log("cuda")
 
 
+def layout(card: str) -> None:
+    import chip_smoke as cs
+
+    reps = {"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}
+    for variant in (None, "J place at run time", "J place at run time", None):
+        use_sources(variant)
+        run = main_shapes()
+        times = ", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in run.items())
+        print(f"layout {variant or 'checkout'}: {times} f32 on {card}", flush=True)
+
+
+def dispatch(card: str) -> None:
+    import time
+
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
+    c = make_controller("leap_cube", "mppi", device="cuda", dtype=torch.float32, seed=0)
+    c.optimizer_cfg.num_rollouts = 320
+    c.controller_cfg.pipeline_depth = 2
+    for k in range(25):
+        c.update_action()
+        t = c.last_plan_timing
+        print(f"dispatch leap depth 2 call {k}: dispatch {t['device_ms']:.2f} ms, total {t['total_ms']:.2f} ms, "
+              f"in flight {len(c._pending) + len(c._consume_futures)} on {card}", flush=True)
+    c.flush_pipeline()
+    x = torch.zeros(16, device="cuda")
+    for n in (64, 64, 128, 256, 512, 768, 1024, 2048):
+        torch.cuda._sleep(int(4e8))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1.0)
+        held = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        print(f"dispatch queue: {n} launches behind a long kernel held the host {1e3 * held:.2f} ms on {card}",
+              flush=True)
+
+
+# Run in a checkout's root: time that checkout's kernels at main_shapes.
+TIME_TREE = """
+import chip_profile as p, chip_smoke as cs
+reps = {"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}
+print(", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in p.main_shapes().items()), flush=True)
+"""
+
+
+def compare(card: str, other: str) -> None:
+    trees = {"other": Path(other).resolve(), "this": ROOT}
+    build = "from judo_tpu_torch import _build; _build.load('cuda')"
+    procs = {k: subprocess.Popen([sys.executable, "-c", build], cwd=d) for k, d in trees.items()}
+    for k, proc in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"building the kernels of {trees[k]} failed")
+    for k in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, "-c", TIME_TREE], cwd=trees[k], capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"timing {trees[k]} failed: {out.stderr[-2000:]}")
+        print(f"compare {k} ({trees[k]}): {out.stdout.strip()} f32 on {card}", flush=True)
+
+
 def horizon(card: str) -> None:
     import numpy as np
     import torch
@@ -301,14 +383,16 @@ def main() -> int:
 
     import chip_smoke as cs
 
-    modes = {"stages": stages, "unroll": unroll, "inline": inline, "horizon": horizon}
-    if len(sys.argv) != 2 or sys.argv[1] not in modes:
-        print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}}", file=sys.stderr)
+    modes = {"stages": stages, "unroll": unroll, "inline": inline, "horizon": horizon, "compare": compare,
+             "layout": layout, "dispatch": dispatch}
+    args = sys.argv[2:]
+    if len(sys.argv) < 2 or sys.argv[1] not in modes or len(args) != (sys.argv[1] == "compare"):
+        print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}} (compare: DIR)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this run needs a CUDA GPU", file=sys.stderr)
         return 1
-    modes[sys.argv[1]](cs.card_info())
+    modes[sys.argv[1]](cs.card_info(), *args)
     return 0
 
 

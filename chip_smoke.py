@@ -6,12 +6,15 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the final line):
+Phases (every phase runs; any check that fails, or any error, exits non-zero
+without the final line):
 1. card: name and power limit from nvidia-smi; a CUDA device is required;
 2. build: compile the CUDA kernels from judo_tpu_torch/csrc (one nvcc per
-   source, in parallel); print each kernel's registers and spills, and its
-   dynamic shared memory per block (one rollout's scratch) with the blocks
-   that stay resident on one SM, float32 and float64;
+   source, in parallel); print each kernel's registers and spills, and for
+   each scene and dtype its scratch layout (all in shared memory, or J in a
+   slab of global memory where the whole scratch exceeds the card's
+   per-block limit), its dynamic shared memory per block and the blocks that
+   stay resident on one SM;
 3. kernel vs plain version, float64 and float32:
    - fused_rollout (K1) against rollout_lanes_reference, 5 steps, warm-start
      forces carried: the leap model at 320 and 33 rollouts, cylinder_push
@@ -20,7 +23,12 @@ Phases (any failure exits non-zero before the final line):
      sensors) at 64 and 33;
    - fused_policy_rollout (K2) against policy_rollout_lanes_reference on
      spot_navigate, 24 and 80 rollouts, 3 policy ticks, a random nonzero
-     starting policy output;
+     starting policy output; and on spot_box_push, spot_tire_roll and
+     spot_tire_upright (the object against the front feet, 5 mm into the
+     ground; the tire of spot_tire_upright tipped onto its rim), 24
+     rollouts, 3 ticks, with the plain version's own float32 vs float64
+     error beside each float32 check; and with that tire lying flat, where
+     the plane-cylinder rim direction is rounding noise, over 1 tick;
    - physics_step (K3) against step_l with a cold probe, leap at 320, spot
      at 24 and fr3_pick at 64 rollouts;
 4. paths, each driven with every launch count set to 0 just before it and
@@ -37,13 +45,28 @@ Phases (any failure exits non-zero before the final line):
    - fr3_pick: make_controller("fr3_pick", "cem"), 64 rollouts, 1 s horizon
      (T = 252 steps of 4 ms), 1 warm-up and 5 timed solves, one K1 launch per
      solve;
+   - spot_box_push, spot_tire_roll, spot_tire_upright: make_controller(task,
+     "mppi") at its defaults (24 rollouts, 3 knots, 2 s horizon, T = 100
+     policy ticks x 2 physics steps), 1 warm-up and 5 timed solves, one K2
+     launch per solve;
+   - pipelining: leap_cube + mppi (320 rollouts) and spot_navigate + mppi at
+     pipeline_depth 0 and 2, 5 + 20 calls each on the same states, as
+     bench.py times them (host
+     time of each update_action; at depth 2 in steady state); every depth-2
+     call must return before the card has run the solve it dispatched, and
+     the flushed depth-2 run must have published depth 0's mirrors, bitwise;
+     one depth-2 call under torch.cuda.set_sync_debug_mode("warn"), whose
+     warnings (each an operation that waits for the card) must be none;
 5. one float64 solve per path, cuda against cpu with shared noise (leap and
-   spot with MPPI, cylinder_push with PS, fr3_pick with CEM);
+   spot with MPPI, cylinder_push with PS, fr3_pick with CEM, spot_box_push
+   with MPPI, whose float64 kernel runs with J in global memory);
 6. timing with CUDA events: each kernel against its plain version, and its
    bound (the larger of its bytes over the memory rate and its operations
    over the float32 rate, counted from the shapes of this run); K1 also on
    cylinder_push (32 rollouts, T 52) and fr3_pick (64, T 252); K2 also with
-   no physics substeps, which leaves the policy's share of a tick.
+   no physics substeps, which leaves the policy's share of a tick, and on the
+   three object scenes at R 24, T 100 x 2 (their plain version timed over 3
+   ticks).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -59,14 +82,28 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "f32_distance": 1e-2, "solve_f64": 1e-6}
+LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "f32_distance": 1e-2, "solve_f64": 1e-6,
+          "f32_flat_tire_vs_own": 2.0}
 # f32_distance: distance sensors in float32. Their box-box separation along a
 # near-parallel edge axis divides by 1 - R^2 (about 3e-4 for fr3's finger and
 # object boxes near the home pose), so float32 rounding of the orientations
 # reaches 1e-3: the plain version in float32 departs from itself in float64 by
 # as much on the same inputs (printed beside each check).
+# f32_flat_tire_vs_own: K2 in float32 on the flat tire may depart from the
+# plain version by twice the plain version's own float32 vs float64 error on
+# the same inputs. There the plane-cylinder rim direction is float32 rounding
+# noise against the 1e-8 fallback, so the tire rests on a rim point that any
+# change in the order of operations moves (PERF.md section 6).
 B_MAIN, T_CHECK, T_FULL = 320, 5, 100
 R_SPOT, T_POLICY_CHECK = 24, 3
+# The Spot tasks with an object; K2 plans them all.
+OBJECT_TASKS = ("spot_box_push", "spot_tire_roll", "spot_tire_upright")
+# The tire of spot_tire_upright in K2's checks: tipped 0.5 rad onto its rim.
+# Lying flat, its axis is along the ground's normal, where plane-cylinder's
+# rim direction is rounding noise and the tire rests on one rim point, so
+# the dynamics from there split apart at the rounding of the operations
+# (section 6 of PERF.md): the flat tire has a check of its own, over 1 tick.
+TIRE_TILT, T_FLAT = 0.5, 1
 # Rollouts of the K1 checks per scene, and of the K3 check.
 K1_B = {"leap": (B_MAIN, 33), "cylinder_push": (32, 33), "fr3": (64, 33)}
 K3_B = {"leap": B_MAIN, "spot": R_SPOT, "fr3": 64}
@@ -152,6 +189,60 @@ def spot_inputs(task, B: int, T: int, seed: int, dtype, device):
     return [tensor(x, dtype, device) for x in (qp, qv, po, cmd)]
 
 
+def object_pose(task, rng, tilt: float = 0.0) -> np.ndarray:
+    """The robot standing at the origin, its arm at the task's reset, and the
+    object against its front feet: the box upright, the tire of
+    spot_tire_roll upright, the tire of spot_tire_upright as its reset lays
+    it, flat (body quat (1, +-1, 0, 0)/sqrt(2) turned by a random yaw, which
+    keeps its axis along z), or with ``tilt`` tipped by that angle about the
+    x axis onto its rim, as in the middle of a flip; each a few cm from its
+    place and 5 mm into the ground (a contact at zero distance is active or
+    not by the rounding of the operations)."""
+    from judo_tpu_torch.tasks.spot import spot_constants as sc
+
+    robot = np.r_[0.0, 0.0, sc.STANDING_HEIGHT, 1, 0, 0, 0, sc.LEGS_STANDING_POS, task.reset_arm_pos]
+    dx, dy = 0.03 * rng.standard_normal(2)
+    sink = 0.005
+    if task.name == "spot_box_push":
+        obj = [0.6 + dx, dy, sc.BOX_HALF_LENGTH - sink, 1, 0, 0, 0]
+    elif task.name == "spot_tire_roll":
+        obj = [0.66 + dx, dy, sc.TIRE_RADIUS - sink, 1, 0, 0, 0]
+    else:
+        yaw, sign = rng.uniform(0, 2 * np.pi), rng.choice([-1.0, 1.0])
+        c, s = np.cos(yaw / 2), np.sin(yaw / 2)
+        w, x, y, z = np.array([c, sign * c, sign * s, s]) / np.sqrt(2)
+        ct, st = np.cos(tilt / 2), np.sin(tilt / 2)  # (ct, st, 0, 0) * (w, x, y, z)
+        quat = [ct * w - st * x, ct * x + st * w, ct * y - st * z, ct * z + st * y]
+        height = sc.TIRE_RADIUS * np.sin(tilt) + sc.TIRE_HALF_WIDTH * np.cos(tilt) - sink
+        obj = [0.66 + dx, dy, height, *quat]
+    return np.r_[robot, obj]
+
+
+def object_inputs(task, B: int, T: int, seed: int, dtype, device, tilt: float = TIRE_TILT):
+    """K2's inputs on an object scene: object_pose per rollout (the tire of
+    spot_tire_upright tipped by ``tilt``) with the robot's joints perturbed,
+    small velocities, a random nonzero policy output, and walking commands
+    with the arm at the task's reset."""
+    from judo_tpu_torch.tasks.spot import spot_constants as sc
+
+    rng = np.random.default_rng(seed)
+    qp = np.stack([object_pose(task, rng, tilt) for _ in range(B)], axis=1)
+    qp[7:26] += 0.05 * rng.standard_normal((19, B))
+    qv = 0.05 * rng.standard_normal((task.nv, B))
+    po = 0.3 * rng.standard_normal((12, B))
+    cmd = np.zeros((T, 25, B))
+    cmd[:, :3] = 0.5 * rng.standard_normal((T, 3, B))
+    cmd[:, 3:10] = task.reset_arm_pos[None, :, None]
+    cmd[:, 24] = sc.STANDING_HEIGHT_CMD
+    return [tensor(x, dtype, device) for x in (qp, qv, po, cmd)]
+
+
+def spot_task(scene: str, dtype):
+    from judo_tpu_torch.tasks import get_registered_tasks
+
+    return get_registered_tasks()[scene][0](device="cuda", dtype=dtype)
+
+
 def max_errs(names, ref, out) -> dict:
     return {n: float((a - b).abs().max()) for n, a, b in zip(names, ref, out)}
 
@@ -200,20 +291,32 @@ def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap") -> dict:
     return err
 
 
-def k2_vs_plain(dtype_name: str, B: int) -> dict:
+def k2_vs_plain(dtype_name: str, B: int, scene: str = "spot_navigate", ticks: int = T_POLICY_CHECK,
+                tilt: float = TIRE_TILT) -> dict:
+    """K2 against its plain version over ``ticks`` policy ticks (the tire of
+    spot_tire_upright tipped by ``tilt``); on an object scene in float32 also
+    the plain version's own float32 vs float64 error on the same inputs
+    ("states_plain_f32_vs_f64")."""
     import torch
 
     from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout, policy_rollout_lanes_reference
-    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
-    task = SpotNavigate(device="cuda", dtype=dtype)
-    args = spot_inputs(task, B, T_POLICY_CHECK, seed=5, dtype=dtype, device="cuda")
+    task = spot_task(scene, dtype)
+    if scene == "spot_navigate":
+        args = spot_inputs(task, B, ticks, seed=5, dtype=dtype, device="cuda")
+    else:
+        args = object_inputs(task, B, ticks, seed=5, dtype=dtype, device="cuda", tilt=tilt)
     ref = policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
     out = fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8)
     torch.cuda.synchronize()
     err = max_errs(("states", "qvel", "sensors", "pout"), ref, out)
     err["states"] = max(err["states"], err.pop("qvel"))
+    if dtype == torch.float32 and scene != "spot_navigate":
+        d = torch.float64
+        t64 = spot_task(scene, d)
+        ref64 = policy_rollout_lanes_reference(t64.planning_model, t64.policy, *(a.to(d) for a in args), 2, 8)
+        err["states_plain_f32_vs_f64"] = max(float((a.double() - b).abs().max()) for a, b in zip(ref[:2], ref64[:2]))
     return err
 
 
@@ -389,6 +492,106 @@ def fr3_path() -> dict:
             "phase": c.task.phase.name}
 
 
+def object_task_path(name: str) -> dict:
+    """A Spot object task planned with MPPI at its defaults, from the task's
+    own reset (seeded): the object 1-2 m from the robot, the tire of
+    spot_tire_upright lying flat."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
+    np.random.seed(0)
+    c = make_controller(name, "mppi", device="cuda", dtype=torch.float32, seed=0)
+    cfg = c.optimizer_cfg
+    if (cfg.num_rollouts, cfg.num_nodes, c.horizon, c.num_timesteps, c.task.physics_substeps) != (R_SPOT, 3, 2.0,
+                                                                                                     T_FULL, 2):
+        raise RuntimeError(f"{name} + mppi defaults are not R 24, 3 knots, 2 s, T 100 x 2")
+    rng = np.random.default_rng(6)
+    base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+
+    def perturbed():
+        s = base.copy()
+        s[c.pm.nq :] += 0.02 * rng.standard_normal(c.pm.nv)
+        return s
+
+    times, counts = drive(c, 1, 5, perturbed)
+    if counts["fused_policy_rollout"] != 5:
+        raise RuntimeError(f"fused_policy_rollout launches {counts} != 5 solves")
+    return {"counts": counts, "p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+            "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min())}
+
+
+def depth_path(task_name: str, R: int, warmup: int, timed: int) -> dict:
+    """Plan times at pipeline_depth 0 and 2, as bench.py takes them: the host
+    time of each update_action on freshly perturbed states, without a sync
+    after the call. Each depth starts from a reset controller and runs the
+    same states, ``warmup`` calls (at depth 2 they fill the pipeline) and
+    ``timed`` timed ones. At depth 2 each call must return before the card
+    has run the solve it dispatched (the event that ends the solve's mirror
+    copy has not fired), and once flushed the run must have published what
+    depth 0 published, bitwise: the carry chains on the card as it does
+    unpipelined. The runs are short: from one standing state, a sampled Spot
+    rollout diverges after some 30 solves, in the plain version as in the
+    kernel, and its non-finite reward then spoils the plan (ROADMAP queue 3).
+    One more depth-2 call runs under torch.cuda.set_sync_debug_mode("warn");
+    its warnings name every operation on the dispatch path that waits for the
+    card that PyTorch can see."""
+    import warnings
+
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+    from judo_tpu_torch.tasks.leap_cube import QPOS_REST
+
+    c = make_controller(task_name, "mppi", device="cuda", dtype=torch.float32, seed=0)
+    c.optimizer_cfg.num_rollouts = R
+    if task_name == "spot_navigate":
+        c.task.config.goal_position = np.array([1.5, 0.5, 0.52])
+        base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+    else:
+        base = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
+    out: dict = {}
+
+    def run(depth: int) -> tuple:
+        c.reset()
+        c.controller_cfg.pipeline_depth = depth
+        rng = np.random.default_rng(7)
+        times, dispatch, early = [], [], 0
+        for k in range(warmup + timed):
+            c.current_state = base + np.r_[np.zeros(c.pm.nq), 0.02 * rng.standard_normal(c.pm.nv)]
+            if k == warmup:
+                reset_counts()
+            t0 = time.perf_counter()
+            c.update_action()
+            if k < warmup:
+                continue
+            times.append(1e3 * (time.perf_counter() - t0))
+            if depth:
+                early += not c._pending[-1].ready.query()
+                dispatch.append(c.last_plan_timing["device_ms"])
+        out[depth] = {"p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
+                      "early": early, "calls": timed, "counts": read_counts()}
+        if depth:
+            out[depth]["dispatch_p50_ms"] = float(np.percentile(dispatch, 50))
+        c.flush_pipeline()
+        return c.rewards.copy(), np.asarray(c.nominal_knots).copy()
+
+    ref, piped = run(0), run(2)
+    out["same"] = all(np.array_equal(a, b) for a, b in zip(ref, piped))
+    out["finite"] = all(bool(np.all(np.isfinite(a))) for a in ref)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            c.update_action()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["syncs"] = [str(w.message).splitlines()[0] for w in caught if "prototype" not in str(w.message)]
+    c.flush_pipeline()
+    torch.cuda.synchronize()
+    return out
+
+
 def step_path() -> dict:
     import torch
 
@@ -415,6 +618,7 @@ def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> f
 
     out = {}
     for dev in ("cpu", "cuda"):
+        np.random.seed(0)  # the same random reset pose on both devices
         c = make_controller(task_name, opt_name, device=dev, dtype=torch.float64, seed=0)
         c.optimizer_cfg.num_rollouts = R
         c.controller_cfg.horizon = horizon
@@ -519,34 +723,41 @@ def timing() -> dict:
         res[f"fused_rollout {scene} B={B} T={T}"] = (ms, plain, *bound_ms(io, B * T * step_flops(m, 8, False)))
     # the same launch with no physics substeps: observation, MLP and ctrl only
     res["k2_policy_only_ms"] = event_ms(lambda: fused_policy_rollout(sm, pol, *args, 0, 8), 5)
+    # K2 at the object tasks' plan shape; the plain version over 3 ticks
+    for scene in OBJECT_TASKS:
+        task = spot_task(scene, f32)
+        om, opol = task.planning_model, task.policy
+        oargs = object_inputs(task, R_SPOT, T_FULL, seed=11, dtype=f32, device="cuda")
+        ms = event_ms(lambda: fused_policy_rollout(om, opol, *oargs, 2, 8), 5)
+        short = [a[:T_POLICY_CHECK] if a.dim() == 3 else a for a in oargs]
+        plain = event_ms(lambda: policy_rollout_lanes_reference(om, opol, *short, 2, 8), 1, warmup=False)
+        io = weights + 4 * R_SPOT * (om.nq + om.nv + 12 + T_FULL * (25 + om.nq + om.nv + om.nsensordata + 12))
+        bnd = bound_ms(io, R_SPOT * T_FULL * (mlp + 2 * step_flops(om, 8, False)))
+        res[f"k2 {scene}"] = (ms, plain / T_POLICY_CHECK, *bnd)
     return res
 
 
 def occupancy_report() -> list:
-    """Dynamic shared memory per block and resident blocks per SM of each
-    kernel at the main paths' models, float32 and float64."""
+    """Scratch layout, dynamic shared memory per block and resident blocks
+    per SM of each kernel at the paths' models, float32 and float64."""
     import torch
 
-    from judo_tpu_torch.physics.fused_rollout import rollout_blocks_per_sm
-    from judo_tpu_torch.physics.policy_rollout import policy_blocks_per_sm
-    from judo_tpu_torch.tasks.leap_cube import LeapCube
-    from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
+    from judo_tpu_torch.physics.fused_rollout import kernel_layout
 
     lines = []
     for dtype in (torch.float32, torch.float64):
         name = "f32" if dtype == torch.float32 else "f64"
-        m = LeapCube(device="cuda", dtype=dtype).planning_model
-        task = SpotNavigate(device="cuda", dtype=dtype)
-        cyl, fr3 = scene_model("cylinder_push", dtype), scene_model("fr3", dtype)
-        for kernel, (nbytes, blocks) in (
-            ("fused_rollout leap", rollout_blocks_per_sm(m, dtype)),
-            ("physics_step leap", rollout_blocks_per_sm(m, dtype, cold=True)),
-            ("fused_policy_rollout spot", policy_blocks_per_sm(task.planning_model, task.policy, dtype)),
-            ("fused_rollout cylinder_push", rollout_blocks_per_sm(cyl, dtype)),
-            ("fused_rollout fr3", rollout_blocks_per_sm(fr3, dtype)),
-            ("physics_step fr3", rollout_blocks_per_sm(fr3, dtype, cold=True)),
-        ):
-            lines.append(f"{kernel} {name}: {nbytes} B dynamic shared memory per block, {blocks} blocks per SM")
+        leap, cyl, fr3 = (scene_model(s, dtype) for s in ("leap", "cylinder_push", "fr3"))
+        rows = [("fused_rollout leap", leap, False, None), ("physics_step leap", leap, True, None),
+                ("fused_rollout cylinder_push", cyl, False, None), ("fused_rollout fr3", fr3, False, None),
+                ("physics_step fr3", fr3, True, None)]
+        for scene in ("spot_navigate", *OBJECT_TASKS):
+            task = spot_task(scene, dtype)
+            rows.append((f"fused_policy_rollout {scene}", task.planning_model, False, task.policy))
+        for kernel, m, cold, policy in rows:
+            layout, nbytes, blocks = kernel_layout(m, dtype, cold, policy)
+            lines.append(f"{kernel} {name}: layout {layout}, {nbytes} B dynamic shared memory per block, {blocks} "
+                         f"blocks per SM")
     return lines
 
 
@@ -611,9 +822,27 @@ def main() -> int:
                           f"{e['efc0_scale']:.3e})", e["efc0_rel"], LIMITS["f32_efc0_rel"])
     for name in ("f64", "f32"):
         for B in (R_SPOT, 80):
-            e = errs[("fused_policy_rollout", name, B)] = k2_vs_plain(name, B)
+            e = errs[("fused_policy_rollout", name, "spot_navigate", B)] = k2_vs_plain(name, B)
             for k in ("states", "sensors", "pout"):
                 check(f"fused_policy_rollout vs plain {name} spot B={B} T={T_POLICY_CHECK} {k}", e[k], LIMITS[name])
+        for scene in OBJECT_TASKS:
+            e = errs[("fused_policy_rollout", name, scene, R_SPOT)] = k2_vs_plain(name, R_SPOT, scene)
+            own = "" if name == "f64" else (f" (the plain version's own f32 vs f64 error "
+                                            f"{e['states_plain_f32_vs_f64']:.3e})")
+            tipped = f" tire tipped {TIRE_TILT} rad" if scene == "spot_tire_upright" else ""
+            for k in ("states", "sensors", "pout"):
+                check(f"fused_policy_rollout vs plain {name} {scene}{tipped} B={R_SPOT} T={T_POLICY_CHECK} {k}"
+                      f"{own if k == 'states' else ''}", e[k], LIMITS[name])
+        e = errs[("fused_policy_rollout", name, "flat tire", R_SPOT)] = k2_vs_plain(
+            name, R_SPOT, "spot_tire_upright", T_FLAT, tilt=0.0)
+        label = f"fused_policy_rollout vs plain {name} spot_tire_upright tire flat B={R_SPOT} T={T_FLAT}"
+        if name == "f64":
+            for k in ("states", "sensors", "pout"):
+                check(f"{label} {k}", e[k], LIMITS["f64"])
+        else:
+            own = e["states_plain_f32_vs_f64"]
+            check(f"{label} states (the plain version's own f32 vs f64 error {own:.3e}; limit twice that)",
+                  e["states"], max(LIMITS["f32"], LIMITS["f32_flat_tire_vs_own"] * own))
     for name in ("f64", "f32"):
         for scene in ("leap", "spot", "fr3"):
             e = errs[("physics_step", name, scene)] = k3_vs_plain(name, scene)
@@ -625,8 +854,6 @@ def main() -> int:
                 check(f"physics_step vs plain f64 {scene} efc", e["efc"], LIMITS["f64"])
             else:
                 check(f"physics_step vs plain f32 {scene} efc relative", e["efc_rel"], LIMITS["f32_efc0_rel"])
-    if not ok:
-        return 1
 
     card = card_info()
     leap = leap_path()
@@ -646,32 +873,62 @@ def main() -> int:
               f"launches {p['counts']} in {p['counts']['fused_rollout']} solves, rewards [{p['reward_min']:.4f}, "
               f"{p['reward_max']:.4f}]{' phase ' + p['phase'] if 'phase' in p else ''} on {card}", flush=True)
 
+    for label in OBJECT_TASKS:
+        p = new_paths[label] = object_task_path(label)
+        print(f"path {label} mppi R={R_SPOT} T={T_FULL}x2 f32: p50 {p['p50_ms']:.2f} ms p95 {p['p95_ms']:.2f} ms "
+              f"launches {p['counts']} in 5 solves, rewards [{p['reward_min']:.4f}, {p['reward_max']:.4f}] on {card}",
+              flush=True)
+    for task_name, R in (("leap_cube", B_MAIN), ("spot_navigate", R_SPOT)):
+        d = depth_path(task_name, R, 5, 20)
+        d0, d2 = d[0], d[2]
+        kernel = "fused_rollout" if task_name == "leap_cube" else "fused_policy_rollout"
+        print(f"pipelining {task_name} mppi R={R} f32, 5 + 20 calls: depth 0 p50 {d0['p50_ms']:.2f} ms p95 "
+              f"{d0['p95_ms']:.2f} ms; depth 2 p50 {d2['p50_ms']:.2f} ms p95 {d2['p95_ms']:.2f} ms, dispatch p50 "
+              f"{d2['dispatch_p50_ms']:.2f} ms, {d2['early']} of {d2['calls']} calls returned before their solve "
+              f"ended, launches {d2['counts'][kernel]}; flushed mirrors equal depth 0's bitwise: {d['same']}, finite: "
+              f"{d['finite']} on {card}", flush=True)
+        for msg in d["syncs"]:
+            print(f"  sync on the depth-2 dispatch path: {msg}")
+        good = d2["early"] == d2["calls"] == d2["counts"][kernel] == d0["counts"][kernel] and d["same"] and d["finite"]
+        good &= not d["syncs"]
+        ok &= good
+        print(f"pipelining {task_name}: every depth-2 call launched its kernel and returned before its solve ended, "
+              f"the flushed mirrors are finite and equal depth 0's, and nothing on the dispatch path waited for the "
+              f"card: {'ok' if good else 'FAIL'}", flush=True)
     for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
-                                            ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032)):
+                                            ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032),
+                                            ("spot_box_push", "mppi", 4, 0.4)):
         d = solve_gpu_vs_cpu(task_name, opt_name, R, horizon)
         check(f"solve f64 {task_name} {opt_name} R={R} horizon {horizon} s cuda vs cpu (shared noise)", d,
               LIMITS["solve_f64"])
-    if not ok:
-        return 1
 
     t = timing()
-    for name, (ms, plain, bnd, by) in ((k, v) for k, v in t.items() if isinstance(v, tuple)):
+    for name, (ms, plain, bnd, by) in ((k, v) for k, v in t.items() if isinstance(v, tuple) and k[:3] != "k2 "):
         print(f"time {name} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms, bound {bnd:.4f} ms "
               f"({by}) on {card}", flush=True)
     print(f"time fused_policy_rollout plain PyTorch per tick: {t['fused_policy_rollout'][1] / T_FULL:.1f} ms",
           flush=True)
     print(f"time fused_policy_rollout f32 with 0 physics substeps (observation, MLP, ctrl): "
           f"{t['k2_policy_only_ms']:.3f} ms on {card}", flush=True)
+    for scene in OBJECT_TASKS:
+        ms, tick, bnd, by = t[f"k2 {scene}"]
+        print(f"time fused_policy_rollout {scene} R={R_SPOT} T={T_FULL}x2 f32: kernel {ms:.3f} ms, plain PyTorch "
+              f"{tick:.1f} ms per tick, bound {bnd:.4f} ms ({by}) on {card}", flush=True)
+    if not ok:  # every phase ran; a check that failed above fails the run
+        print("a check failed: see the lines marked FAIL", file=sys.stderr)
+        return 1
 
     launches = {"fused_rollout": leap["counts"]["fused_rollout"] + sum(p["counts"]["fused_rollout"]
                                                                        for p in new_paths.values()),
-                "fused_policy_rollout": spot["counts"]["fused_policy_rollout"],
+                "fused_policy_rollout": spot["counts"]["fused_policy_rollout"] + sum(
+                    new_paths[s]["counts"]["fused_policy_rollout"] for s in OBJECT_TASKS),
                 "physics_step": step["counts"]["physics_step"]}
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
          max(e["states"] for k, e in errs.items() if k[0] == "fused_rollout" and k[1] == "f32")),
         ("fused_policy_rollout", "judo_tpu_torch/csrc/fused_policy_rollout.cu", "judo_tpu/physics/pallas_step.py:310",
-         max(errs[("fused_policy_rollout", "f32", B)]["states"] for B in (R_SPOT, 80))),
+         max(e["states"] for k, e in errs.items() if k[0] == "fused_policy_rollout" and k[1] == "f32"
+             and k[2] != "flat tire")),
         ("physics_step", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:71",
          max(errs[("physics_step", "f32", s)]["states"] for s in K3_B)),
     ]

@@ -114,23 +114,25 @@ def load(kind: str) -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.jt_scratch_per_lane.argtypes = [ctypes.POINTER(JtSizes)]
     lib.jt_scratch_per_lane.restype = ctypes.c_longlong
+    lib.jt_jslab_per_lane.argtypes = [ctypes.POINTER(JtSizes)]
+    lib.jt_jslab_per_lane.restype = ctypes.c_longlong
     lib.jt_model_sizes.argtypes = [ctypes.POINTER(JtSizes), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.jt_model_sizes.restype = None
     for name in ("jt_fused_rollout_f32", "jt_fused_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 11
+        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12
         fn.restype = ctypes.c_int
     lib.jt_policy_scratch_per_lane.argtypes = [ctypes.POINTER(JtSizes), ctypes.c_int]
     lib.jt_policy_scratch_per_lane.restype = ctypes.c_longlong
     for name in ("jt_fused_policy_rollout_f32", "jt_fused_policy_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12 + [ctypes.c_int, p]
+        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 13 + [ctypes.c_int, p]
         fn.restype = ctypes.c_int
     if kind == "cuda":
         i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         lib.jt_smem_optin.argtypes = [pi]
-        lib.jt_rollout_blocks_per_sm.argtypes = [i, i, i, pi]
-        lib.jt_policy_blocks_per_sm.argtypes = [i, i, pi]
+        lib.jt_rollout_blocks_per_sm.argtypes = [i, i, i, i, pi]
+        lib.jt_policy_blocks_per_sm.argtypes = [i, i, i, pi]
         for fn in (lib.jt_smem_optin, lib.jt_rollout_blocks_per_sm, lib.jt_policy_blocks_per_sm):
             fn.restype = ctypes.c_int
     if kind == "host":

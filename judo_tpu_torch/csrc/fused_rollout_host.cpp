@@ -11,16 +11,23 @@
 
 template <typename T>
 static int run(const JtSizes* s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
-               const T* f0, T* oq, T* ov, T* os, T* of0) {
+               const T* f0, T* oq, T* ov, T* os, T* of0, T* jslab) {
   std::vector<T> work(jt::make_scratch(*s).total);
   return jt::host_guard([&] {
-    for (int b = 0; b < s->B; ++b) jt::rollout<T>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, work.data(), b);
+    for (int b = 0; b < s->B; ++b) {
+      if (s->jglobal)
+        jt::rollout<T, true>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab, work.data(), b);
+      else
+        jt::rollout<T, false>(*s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab, work.data(), b);
+    }
   });
 }
 
 extern "C" {
 
 long long jt_scratch_per_lane(const JtSizes* s) { return (long long)jt::make_scratch(*s).total; }
+
+long long jt_jslab_per_lane(const JtSizes* s) { return (long long)jt::make_scratch(*s).jsize; }
 
 void jt_model_sizes(const JtSizes* s, int* nint, int* nflt) {
   const jt::Layout L = jt::make_layout(*s);
@@ -29,14 +36,15 @@ void jt_model_sizes(const JtSizes* s, int* nint, int* nflt) {
 }
 
 int jt_fused_rollout_f32(const JtSizes* s, const int* mi, const float* mf, const float* qpos0, const float* qvel0,
-                         const float* ctrl, const float* f0, float* oq, float* ov, float* os, float* of0, void*) {
-  return run<float>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
+                         const float* ctrl, const float* f0, float* oq, float* ov, float* os, float* of0,
+                         float* jslab, void*) {
+  return run<float>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab);
 }
 
 int jt_fused_rollout_f64(const JtSizes* s, const int* mi, const double* mf, const double* qpos0,
                          const double* qvel0, const double* ctrl, const double* f0, double* oq, double* ov,
-                         double* os, double* of0, void*) {
-  return run<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0);
+                         double* os, double* of0, double* jslab, void*) {
+  return run<double>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab);
 }
 
 // The contact slots of one geom pair (x, row-major m, sizes s) of pair kind

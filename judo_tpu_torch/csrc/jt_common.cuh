@@ -11,8 +11,9 @@
 // same primitives play the 32 lanes in the card's order, so the host twin runs
 // the partition and summation order that the card runs. No per-thread array is
 // sized by the model (only fixed small locals): the wrapper sizes the shared
-// memory from jt_scratch_per_lane and raises when it exceeds the card's
-// per-block limit.
+// memory from jt_scratch_per_lane, moves J to global memory where the whole
+// scratch exceeds the card's per-block limit (make_scratch), and raises where
+// even the rest exceeds it.
 #pragma once
 
 #include <math.h>
@@ -37,12 +38,13 @@ extern "C" {
 // elliptic cone's 3 rows); cold: start each launch's probe with 3 warm-up
 // |A| applies instead of reading the carried one. nnc: the rows before the
 // contact block (joint-equality rows, then joint-limit rows); ndist, ndpair:
-// distance sensors and the geom pairs they read.
+// distance sensors and the geom pairs they read. jglobal: the scratch layout
+// that keeps each rollout's J in a slab of global memory (make_scratch).
 struct JtSizes {
   int B, T, substeps, iterations, pyramidal, cold;
   int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, nsensordata;
   int nnc, npair, ncon, nefc, nisl, ndist, ndpair;
-  int nu_, ns_, nefc_;
+  int nu_, ns_, nefc_, jglobal;
 };
 }
 
@@ -52,7 +54,8 @@ enum { FREE = 0, BALL = 1, SLIDE = 2, HINGE = 3 };
 // Pair kind codes; fused_rollout.py:PAIR_KINDS mirrors them.
 enum {
   PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1, PAIR_PLANE_SPHERE = 2, PAIR_PLANE_CAPSULE = 3, PAIR_PLANE_BOX = 4,
-  PAIR_CAPSULE_CAPSULE = 5, PAIR_CYLINDER_CYLINDER = 6, PAIR_CYLINDER_BOX = 7, NUM_PAIR_KINDS = 8
+  PAIR_CAPSULE_CAPSULE = 5, PAIR_CYLINDER_CYLINDER = 6, PAIR_CYLINDER_BOX = 7, PAIR_SPHERE_BOX = 8,
+  PAIR_PLANE_CYLINDER = 9, PAIR_SPHERE_CYLINDER = 10, PAIR_CAPSULE_CYLINDER = 11, NUM_PAIR_KINDS = 12
 };
 enum { S_JOINTPOS = 9, S_JOINTVEL = 10, S_FRAMEPOS = 26, S_FRAMEQUAT = 27, S_FRAMEXAXIS = 28,
        S_FRAMEZAXIS = 30 };
@@ -128,7 +131,11 @@ HD Layout make_layout(const JtSizes& s) {
   return L;
 }
 
-// Per-rollout scratch sections, in elements.
+// Per-rollout scratch sections, in elements. Two layouts: everything in the
+// one buffer (shared memory on the card), or, with s.jglobal, everything but J,
+// whose jsize elements per rollout then live in a slab of global memory that
+// the wrapper allocates (S.J is -1). The wrapper takes the first where it fits
+// the card's per-block limit of shared memory, else the second.
 struct Scratch {
   int64_t qpos, qvel, fw, cwv;
   int64_t xpos, xquat, xmat, xipos, ximat, xanchor, xaxis, gxpos, gxmat, sxpos, sxmat;
@@ -136,7 +143,7 @@ struct Scratch {
   int64_t M, Minv, work, qfrc, qacc_s, qacc, tv1, tv2;
   int64_t cdist, cpos, cnorm;
   int64_t J, aref, reg, diag, act, invs, bvec, f, y, grad, fnew, vv, bv, muc;
-  int64_t total;
+  int64_t total, jsize;
   int jld;  // row stride of J
 };
 
@@ -148,6 +155,7 @@ HD Scratch make_scratch(const JtSizes& s) {
   // (one row each) then fall in different shared-memory banks, where an even
   // stride such as leap's nv = 22 would put two lanes on every bank.
   S.jld = s.nv | 1;
+  S.jsize = ne * S.jld;
   S.qpos = o; o += s.nq;
   S.qvel = o; o += nv;
   S.fw = o; o += ne;
@@ -182,7 +190,8 @@ HD Scratch make_scratch(const JtSizes& s) {
   S.cdist = o; o += nc;
   S.cpos = o; o += 3 * nc;
   S.cnorm = o; o += 3 * nc;
-  S.J = o; o += ne * S.jld;
+  S.J = s.jglobal ? -1 : o;
+  if (!s.jglobal) o += S.jsize;
   S.aref = o; o += ne;
   S.reg = o; o += ne;
   S.diag = o; o += ne;

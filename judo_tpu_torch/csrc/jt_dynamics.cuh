@@ -16,6 +16,7 @@ struct Ctx {
   const int* mi;
   const T* mf;
   Lane<T> w;  // this rollout's scratch
+  T* J;       // this rollout's J: in the scratch, or its slab of global memory
   HD const int* body_i(int b) const { return mi + L.ib + BI * b; }
   HD const T* body_f(int b) const { return mf + L.fb + BF * b; }
   HD const int* jnt_i(int j) const { return mi + L.ij + JI * j; }

@@ -142,13 +142,15 @@ HD void policy_tick(const Ctx<T>& c, const Policy<T>& p, const PolicyScratch& P,
 }
 
 // The whole policy-in-the-loop rollout of rollout b, run by the 32 lanes of
-// one warp on the scratch `work` (the body of the CUDA kernel and of the host
-// twin's loop). Forces start at zero and the probe at ones; no onset force is
-// read or written.
-template <typename T>
+// one warp on the scratch `work` and, in the layout with J in global memory
+// (JG), b's J in `jslab` (the body of the CUDA kernel and of the host twin's
+// loop). Forces start at zero and the probe at ones; no onset force is read or
+// written.
+template <typename T, bool JG>
 HD void policy_rollout(const JtSizes& s, const int* mi, const T* mf, const int* pi, const T* pf, const T* qpos0,
-                       const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, T* work, int b) {
-  const Ctx<T> c = rollout_ctx(s, mi, mf, work);
+                       const T* qvel0, const T* pout0, const T* cmds, T* oq, T* ov, T* os, T* op, T* jslab, T* work,
+                       int b) {
+  const Ctx<T> c = rollout_ctx<T, JG>(s, mi, mf, work, jslab, b);
   const Policy<T> p = policy_view(pi, pf);
   const PolicyScratch P = make_policy_scratch(s, p.maxw);
   const int64_t B = s.B;

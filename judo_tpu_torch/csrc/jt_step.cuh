@@ -144,7 +144,7 @@ HD void equality_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li,
   const T imp = impedance(lf + 3, pos);
   const T vel = two ? qvel[li[2]] - dpoly * qvel[li[4]] : qvel[li[2]];
   for (int v = 0; v < c.s.nv; ++v) {
-    w[c.S.J + r * c.S.jld + v] = v == li[2] ? side : (two && v == li[4] ? side * -dpoly : T(0));
+    c.J[r * c.S.jld + v] = v == li[2] ? side : (two && v == li[4] ? side * -dpoly : T(0));
   }
   w[c.S.aref + r] = side * (-lf[9] * vel - lf[8] * imp * pos);
   w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
@@ -160,7 +160,7 @@ HD void limit_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li, co
   const T dist = side > T(0) ? q - lf[1] : lf[1] - q;
   const T pos = dist - lf[2];
   const T imp = impedance(lf + 3, pos);
-  for (int v = 0; v < c.s.nv; ++v) w[c.S.J + r * c.S.jld + v] = v == li[2] ? side : T(0);
+  for (int v = 0; v < c.s.nv; ++v) c.J[r * c.S.jld + v] = v == li[2] ? side : T(0);
   w[c.S.aref + r] = -lf[9] * (side * qvel[li[2]]) - lf[8] * imp * pos;
   w[c.S.reg + r] = (T(1) - imp) / tmax(imp, T(kMinimp)) * lf[10];
   w[c.S.act + r] = dist < lf[2] ? T(1) : T(0);
@@ -231,7 +231,7 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
                        pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
       for (int f = 0; f < nrow; ++f) {
         const int r = pyr ? nnc + 4 * ci + f : nnc + f * nc + ci;
-        w[c.S.J + r * ld + v] = jf[f];
+        c.J[r * ld + v] = jf[f];
         vel[f] = vel[f] + jf[f] * qvel[v];
       }
     }
@@ -248,8 +248,8 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
     const T a = w[c.S.act + r];
     T bv = T(0);
     for (int v = 0; v < nv; ++v) {
-      const T j = w[c.S.J + r * ld + v] * a;
-      w[c.S.J + r * ld + v] = j;
+      const T j = c.J[r * ld + v] * a;
+      c.J[r * ld + v] = j;
       bv = bv + j * w[c.S.qacc_s + v];
     }
     w[c.S.bvec + r] = bv - w[c.S.aref + r] * a;
@@ -289,7 +289,7 @@ HD void project(const Ctx<T>& c, int64_t z) {
 template <typename T>
 HD void jt_vec(const Ctx<T>& c, int64_t x, bool absval) {
   T* const w = c.w.p;
-  const T* const J = w + c.S.J;
+  const T* const J = c.J;
   const int ne = c.s.nefc, ld = c.S.jld;
   Warp::for_each(c.s.nv, [&](int v) {
     T acc = T(0);
@@ -306,7 +306,7 @@ HD void jt_vec(const Ctx<T>& c, int64_t x, bool absval) {
 template <typename T>
 HD void apply_op(const Ctx<T>& c, int64_t x, int64_t out, bool absval) {
   T* const w = c.w.p;
-  const T* const J = w + c.S.J;
+  const T* const J = c.J;
   const int nv = c.s.nv, ld = c.S.jld;
   jt_vec(c, x, absval);
   island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, absval);
@@ -338,7 +338,7 @@ HD void dual_solve(const Ctx<T>& c) {
   Warp::for_each(ne, [&](int r) {
     const T is = trsqrt(tmax(w[c.S.diag + r] + w[c.S.reg + r], T(kMinval)));
     w[c.S.invs + r] = is;
-    for (int v = 0; v < nv; ++v) w[c.S.J + r * ld + v] = w[c.S.J + r * ld + v] * is;
+    for (int v = 0; v < nv; ++v) c.J[r * ld + v] = c.J[r * ld + v] * is;
     w[c.S.reg + r] = w[c.S.reg + r] * is * is;
     w[c.S.bvec + r] = w[c.S.bvec + r] * is;
   });
@@ -473,9 +473,14 @@ HD_FORCEINLINE void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) 
   Warp::single([&] { integrate_pos(c, qpos, qvel, h); });
 }
 
-// The context of one rollout: model, sizes and its scratch (`work`, stride 1).
-template <typename T>
-HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work) {
+// The context of rollout b: model, sizes, its scratch (`work`, stride 1) and
+// its J, in the scratch or (JG, the layout s.jglobal) at b's place in the slab
+// `jslab`. JG is a template parameter, not read from s: with J's address
+// space fixed where the kernel is compiled, the J passes of the shared layout
+// stay shared-memory loads (a pointer that may be either takes the generic
+// path, which cost the kernels 4-8 % on an H100: chip_profile.py layout).
+template <typename T, bool JG>
+HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work, T* jslab, int b) {
   Ctx<T> c;
   c.s = s;
   c.L = make_layout(s);
@@ -483,6 +488,7 @@ HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work) {
   c.mi = mi;
   c.mf = mf;
   c.w = Lane<T>{work, 1};
+  c.J = JG ? jslab + (int64_t)b * c.S.jsize : work + c.S.J;
   return c;
 }
 
@@ -513,12 +519,13 @@ HD void store_state(const Ctx<T>& c, T* oq, T* ov, int t, int b) {
 }
 
 // The whole T-step rollout of rollout b, run by the 32 lanes of one warp on
-// the scratch `work` (the body of the CUDA kernels and of the host twin's loop
-// over b). Global arrays are batch-last; see fused_rollout.py.
-template <typename T>
+// the scratch `work` and, in the layout with J in global memory (JG), b's J in
+// `jslab` (the body of the CUDA kernels and of the host twin's loop over b).
+// Global arrays are batch-last; see fused_rollout.py.
+template <typename T, bool JG>
 HD void rollout(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
-                const T* f0, T* oq, T* ov, T* os, T* of0, T* work, int b) {
-  const Ctx<T> c = rollout_ctx(s, mi, mf, work);
+                const T* f0, T* oq, T* ov, T* os, T* of0, T* jslab, T* work, int b) {
+  const Ctx<T> c = rollout_ctx<T, JG>(s, mi, mf, work, jslab, b);
   const int64_t B = s.B;
   rollout_init(c, qpos0, qvel0, f0, b);
   for (int t = 0; t < s.T; ++t) {

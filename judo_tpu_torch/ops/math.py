@@ -18,8 +18,9 @@ def safe_normalize_axis(axis: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def quat_inv(u: torch.Tensor) -> torch.Tensor:
-    """Conjugate of a (unit) quaternion."""
-    return u * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=u.dtype, device=u.device)
+    """Conjugate of a (unit) quaternion (no host-to-device copy: a planning
+    solve must not wait for the device's queue)."""
+    return torch.cat([u[..., :1], -u[..., 1:]], dim=-1)
 
 
 def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -45,3 +46,11 @@ def quat_diff_so3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     speed = 2.0 * torch.atan2(sin_half, diff[..., 0])
     speed = torch.where(speed > math.pi, speed - 2.0 * math.pi, speed)
     return axis * speed[..., None]
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors ``v`` by quaternions ``q`` (wxyz), broadcasting leading dims."""
+    u, v = torch.broadcast_tensors(q[..., 1:], v)
+    w = q[..., :1]
+    uv = torch.linalg.cross(u, v)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))

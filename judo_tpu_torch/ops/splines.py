@@ -2,7 +2,8 @@
 
 Same semantics as ``scipy.interpolate.interp1d`` with kind in {"zero",
 "linear", "cubic"} along axis -2 and constant extrapolation with the edge
-knots; "cubic" is the not-a-knot C2 spline, solved as a dense (N, N) system.
+knots; "cubic" is the not-a-knot C2 spline, whose (N, N) system for the knot
+slopes is tridiagonal and is solved by elimination down the band.
 """
 
 from __future__ import annotations
@@ -16,26 +17,35 @@ def _interval_index(ts: torch.Tensor, tq: torch.Tensor, n_max: int) -> torch.Ten
 
 
 def _notaknot_slopes(ts: torch.Tensor, knots: torch.Tensor) -> torch.Tensor:
-    """Knot slopes of the not-a-knot cubic: ts (N,), knots (..., N, nu)."""
+    """Knot slopes of the not-a-knot cubic: ts (N,), knots (..., N, nu).
+
+    Row i of the system couples slopes i - 1, i and i + 1 (sub, diag and
+    sup below; the two not-a-knot rows have two entries each), so forward
+    elimination and back substitution solve it in 2N steps of elementwise
+    operations. A dense solve would take the same pivots (partial pivoting
+    never swaps rows here) but, on the card, waits for the device's queue on
+    the host, which would serialize pipelined solves."""
     n = ts.shape[0]
     dt = ts[1:] - ts[:-1]
     slope = (knots[..., 1:, :] - knots[..., :-1, :]) / dt[:, None]
-    a = torch.zeros((n, n), dtype=knots.dtype, device=knots.device)
-    i = torch.arange(1, n - 1, device=knots.device)
-    a[i, i - 1] = dt[1:]
-    a[i, i] = 2.0 * (dt[:-1] + dt[1:])
-    a[i, i + 1] = dt[:-1]
-    b_mid = 3.0 * (dt[1:, None] * slope[..., :-1, :] + dt[:-1, None] * slope[..., 1:, :])
-    d0 = ts[2] - ts[0]
-    a[0, 0] = dt[1]
-    a[0, 1] = d0
+    d0, dn = ts[2] - ts[0], ts[-1] - ts[-3]
+    sub = [None, *dt[1:], dn]
+    diag = [dt[1], *(2.0 * (dt[:-1] + dt[1:])), dt[-2]]
+    sup = [d0, *dt[:-1]]
     b0 = ((dt[0] + 2.0 * d0) * dt[1] * slope[..., 0, :] + dt[0] ** 2 * slope[..., 1, :]) / d0
-    dn = ts[-1] - ts[-3]
-    a[-1, -1] = dt[-2]
-    a[-1, -2] = dn
+    b_mid = 3.0 * (dt[1:, None] * slope[..., :-1, :] + dt[:-1, None] * slope[..., 1:, :])
     bn = (dt[-1] ** 2 * slope[..., -2, :] + (2.0 * dn + dt[-1]) * dt[-2] * slope[..., -1, :]) / dn
-    b = torch.cat([b0[..., None, :], b_mid, bn[..., None, :]], dim=-2)
-    return torch.linalg.solve(a, b)
+    rhs = [b0, *b_mid.unbind(-2), bn]
+    c, y = [sup[0] / diag[0]], [rhs[0] / diag[0]]
+    for i in range(1, n):
+        m = diag[i] - sub[i] * c[-1]
+        if i < n - 1:
+            c.append(sup[i] / m)
+        y.append((rhs[i] - sub[i] * y[-1]) / m)
+    x = [y[-1]]
+    for i in range(n - 2, -1, -1):
+        x.insert(0, y[i] - c[i] * x[0])
+    return torch.stack(x, dim=-2)
 
 
 def eval_spline(ts: torch.Tensor, knots: torch.Tensor, tq: torch.Tensor, order: str = "linear") -> torch.Tensor:

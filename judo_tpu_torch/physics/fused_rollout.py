@@ -11,11 +11,14 @@ batch-first layout. ``physics_step`` wraps the single-step kernel (the port of
 ``pallas_step.py::_build_pallas_step``): one step with a cold probe, whose
 plain version is ``step_l(..., cw_v=None)``.
 
-The kernels run one warp per rollout with the rollout's whole scratch
-(``jt_scratch_per_lane`` elements) in dynamic shared memory. The wrapper
-computes those bytes and raises a ``RuntimeError`` naming them and the card's
-per-block opt-in limit when a model does not fit; there is no fallback. Inputs
-and outputs are batch-last, ``(T, n, B)``.
+The kernels run one warp per rollout with the rollout's scratch
+(``jt_scratch_per_lane`` elements) in dynamic shared memory. Before a launch
+the wrapper picks the scratch layout from the sizes: all of it in shared
+memory where that fits the card's per-block opt-in limit, else the layout
+that keeps each rollout's constraint Jacobian J in a slab of global memory
+(``jt_jslab_per_lane`` elements per rollout) and the rest in shared memory.
+Where even that does not fit it raises a ``RuntimeError`` naming the bytes
+and the limit. Inputs and outputs are batch-last, ``(T, n, B)``.
 """
 
 from __future__ import annotations
@@ -57,7 +60,14 @@ PAIR_KINDS = {
     (GEOM_CAPSULE, GEOM_CAPSULE): 5,
     (GEOM_CYLINDER, GEOM_CYLINDER): 6,
     (GEOM_CYLINDER, GEOM_BOX): 7,
+    (GEOM_SPHERE, GEOM_BOX): 8,
+    (GEOM_PLANE, GEOM_CYLINDER): 9,
+    (GEOM_SPHERE, GEOM_CYLINDER): 10,
+    (GEOM_CAPSULE, GEOM_CYLINDER): 11,
 }
+# Scratch layouts (csrc/jt_common.cuh:make_scratch): the whole scratch in
+# shared memory, or J in a slab of global memory and the rest in shared memory.
+SHARED, GLOBAL_J = "shared", "global_j"
 # Kinds of the rows before the contact block (csrc/jt_common.cuh).
 ROW_LIMIT, ROW_EQUALITY = 0, 1
 
@@ -70,7 +80,7 @@ class JtSizes(ctypes.Structure):
         for name in (
             "B", "T", "substeps", "iterations", "pyramidal", "cold", "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite",
             "nsensor", "nsensordata", "nnc", "npair", "ncon", "nefc", "nisl", "ndist", "ndpair", "nu_", "ns_",
-            "nefc_",
+            "nefc_", "jglobal",
         )
     ]
 
@@ -255,15 +265,13 @@ def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | Non
     )
 
 
-def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> int:
-    """Assert the packed model matches the library's layout; return the
-    scratch elements of one rollout."""
+def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> None:
+    """Assert the packed model matches the library's layout."""
     nint, nflt = ctypes.c_int(), ctypes.c_int()
     lib.jt_model_sizes(ctypes.byref(sizes), ctypes.byref(nint), ctypes.byref(nflt))
     pk = pack_model(m)
     if (nint.value, nflt.value) != (pk["mi"].size, pk["mf"].size):
         raise RuntimeError(f"model packing {pk['mi'].size, pk['mf'].size} != kernel layout {nint.value, nflt.value}")
-    return int(lib.jt_scratch_per_lane(ctypes.byref(sizes)))
 
 
 def _check_inputs(m: PhysicsModel, qpos, qvel, ctrl, f0):
@@ -300,38 +308,76 @@ def smem_limit(lib) -> int:
     return limit.value
 
 
-def check_smem(nbytes: int, limit: int, name: str) -> None:
-    """Raise unless one block's ``nbytes`` of dynamic shared memory fit ``limit``."""
-    if nbytes > limit:
-        raise RuntimeError(
-            f"{name}: one rollout's scratch needs {nbytes} bytes of shared memory per block, more than this "
-            f"card's opt-in limit of {limit} bytes; the model is too large for the one-warp kernel"
-        )
+def scratch_elems(lib, sizes: JtSizes, layout: str, maxw: int | None = None) -> int:
+    """Elements of one rollout's scratch in shared memory under ``layout``;
+    ``maxw``: the policy rollout's, with its policy scratch."""
+    sizes.jglobal = int(layout == GLOBAL_J)
+    if maxw is None:
+        return int(lib.jt_scratch_per_lane(ctypes.byref(sizes)))
+    return int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), maxw))
 
 
-def rollout_blocks_per_sm(m: PhysicsModel, dtype: torch.dtype, cold: bool = False) -> tuple[int, int]:
-    """(shared-memory bytes per block, resident blocks per SM) of the rollout
-    kernel (``cold``: the single-step kernel) for ``m`` on the current card."""
+def choose_layout(lib, sizes: JtSizes, itemsize: int, name: str, maxw: int | None = None,
+                  limit: int | None = None) -> tuple[str, int]:
+    """(layout, shared-memory bytes per block) of a launch, and set
+    ``sizes.jglobal`` to match: the whole scratch in shared memory where it
+    fits ``limit`` (the card's opt-in bytes per block; None: no limit), else J
+    in global memory; raises where neither fits."""
+    need = {lay: scratch_elems(lib, sizes, lay, maxw) * itemsize for lay in (SHARED, GLOBAL_J)}
+    for lay in (SHARED, GLOBAL_J):
+        if limit is None or need[lay] <= limit:
+            scratch_elems(lib, sizes, lay, maxw)
+            return lay, need[lay]
+    raise RuntimeError(
+        f"{name}: one rollout's scratch needs {need[SHARED]} bytes of shared memory per block, and "
+        f"{need[GLOBAL_J]} with its constraint Jacobian in global memory, more than this card's opt-in limit of "
+        f"{limit} bytes; the model is too large for the one-warp kernel"
+    )
+
+
+def jslab(lib, sizes: JtSizes, B: int, dtype, dev) -> torch.Tensor:
+    """The global-memory slab of J for ``B`` rollouts (empty in the shared layout)."""
+    n = int(lib.jt_jslab_per_lane(ctypes.byref(sizes))) if sizes.jglobal else 0
+    return torch.empty((B, n), dtype=dtype, device=dev)
+
+
+def kernel_layout(m: PhysicsModel, dtype: torch.dtype, cold: bool = False, policy=None) -> tuple[str, int, int]:
+    """(layout, shared-memory bytes per block, resident blocks per SM) of the
+    rollout kernel (``cold``: the single-step kernel; ``policy``: the policy
+    rollout kernel with that policy) for ``m`` on the current card."""
     from judo_tpu_torch import _build
 
     lib = _build.load("cuda")
-    nbytes = _check_layout(lib, m, _sizes(m, 1, 1, 1, None)) * torch.empty((), dtype=dtype).element_size()
+    sizes = _sizes(m, 1, 1, 1, None)
+    _check_layout(lib, m, sizes)
+    maxw = None if policy is None else max(policy.dims)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    layout, nbytes = choose_layout(lib, sizes, itemsize, "kernel_layout", maxw, smem_limit(lib))
     blocks = ctypes.c_int()
-    err = lib.jt_rollout_blocks_per_sm(int(cold), int(dtype == torch.float64), nbytes, ctypes.byref(blocks))
+    f64 = int(dtype == torch.float64)
+    if policy is None:
+        err = lib.jt_rollout_blocks_per_sm(int(cold), sizes.jglobal, f64, nbytes, ctypes.byref(blocks))
+    else:
+        err = lib.jt_policy_blocks_per_sm(sizes.jglobal, f64, nbytes, ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: {lib.jt_error_string(err).decode()}")
-    return nbytes, blocks.value
+    return layout, nbytes, blocks.value
 
 
-def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False):
+def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False, layout=None):
     """Run the library's fused rollout (or, with ``cold``, the single-step
-    kernel) on contiguous tensors; returns the outputs."""
+    kernel) on contiguous tensors; returns the outputs. ``layout`` forces a
+    scratch layout (tests run the host twin in both); by default the card's
+    limit picks it, and the host twin keeps the whole scratch in one buffer."""
     B, T = qpos.shape[-1], ctrl.shape[0]
     sizes = _sizes(m, B, T, substeps, iterations, cold)
-    per_rollout = _check_layout(lib, m, sizes)
+    _check_layout(lib, m, sizes)
     dev, dtype = qpos.device, qpos.dtype
-    if qpos.is_cuda:
-        check_smem(per_rollout * qpos.element_size(), smem_limit(lib), "physics_step" if cold else "fused_rollout")
+    limit = smem_limit(lib) if qpos.is_cuda and layout is None else None
+    if layout is not None:
+        scratch_elems(lib, sizes, layout)
+    else:
+        choose_layout(lib, sizes, qpos.element_size(), "physics_step" if cold else "fused_rollout", None, limit)
     mi, mf = model_tensors(m, dev, dtype)
     c = pack_model(m)["counts"]
     ins = [x.contiguous() for x in (qpos, qvel, ctrl, f0)]
@@ -340,7 +386,7 @@ def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=Fal
     os_ = torch.empty((T, c["ns_"], B), dtype=dtype, device=dev)
     of0 = torch.empty((c["nefc_"], B), dtype=dtype, device=dev)
     fn = lib.jt_fused_rollout_f64 if dtype == torch.float64 else lib.jt_fused_rollout_f32
-    args = [mi, mf, *ins, oq, ov, os_, of0]
+    args = [mi, mf, *ins, oq, ov, os_, of0, jslab(lib, sizes, B, dtype, dev)]
     err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], stream)
     if err != 0:
         raise RuntimeError(f"fused_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
@@ -432,15 +478,16 @@ def physics_step_host_twin(m: PhysicsModel, qpos, qvel, ctrl, f, iterations: int
 
 def fused_rollout_host_twin(
     m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor, f0: torch.Tensor,
-    substeps: int = 1, iterations: int | None = None,
+    substeps: int = 1, iterations: int | None = None, layout: str = SHARED,
 ):
     """The kernel's own code built with g++ and run on the CPU, one rollout
     after another, with the warp's 32 lanes played in one thread in the
-    card's order (csrc/fused_rollout_host.cpp). For tests."""
+    card's order (csrc/fused_rollout_host.cpp), in scratch layout ``layout``.
+    For tests."""
     _check_inputs(m, qpos, qvel, ctrl, f0)
     from judo_tpu_torch import _build
 
-    return _launch(_build.load("host"), m, qpos, qvel, ctrl, f0, substeps, iterations, None)
+    return _launch(_build.load("host"), m, qpos, qvel, ctrl, f0, substeps, iterations, None, layout=layout)
 
 
 def rollout_lanes(

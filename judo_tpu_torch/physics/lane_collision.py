@@ -2,11 +2,14 @@
 ``judo_tpu/physics/lane_collision.py``), pair-stacked: every quantity is
 (P, ..., B) for the P candidate pairs of one pair type.
 
-Ported pair types: plane-sphere (1 slot), plane-capsule (2), plane-box (4),
-capsule-capsule (1), capsule-box (2), cylinder-cylinder (2), cylinder-box (2)
-and box-box (4), the ones the leap, Spot (navigate), cylinder_push and fr3
-planning models use. Dynamic selections (separating axis, deepest points) are
-rank one-hots over comparison masks, as in the JAX package.
+Ported pair types: plane-sphere (1 slot), plane-capsule (2), plane-cylinder
+(2), plane-box (4), sphere-cylinder (1), sphere-box (1), capsule-capsule (1),
+capsule-cylinder (1), capsule-box (2), cylinder-cylinder (2), cylinder-box (2)
+and box-box (4): every pair type of the JAX package's lanes narrowphase but
+sphere-sphere and sphere-capsule, which no task's planning model has
+(sphere-capsule is here as the body of sphere-cylinder). Dynamic selections
+(separating axis, deepest points, the face of least gap) are rank or
+first-true one-hots over comparison masks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -127,6 +130,23 @@ def _k_plane_capsule(x1, m1, s1, x2, m2, s2):
     return out
 
 
+def _k_plane_cylinder(x1, m1, s1, x2, m2, s2):
+    """2-slot plane-cylinder (lane_collision._k_plane_cylinder): the rim point
+    of each end face deepest along the normal, the -axis end first. With the
+    axis along the normal the rim direction is rounding noise, and where it is
+    shorter than 1e-8 the cylinder's x column takes its place."""
+    n = m1[:, :, 2]
+    axis = m2[:, :, 2]
+    proj = axis * le.l_dot3(axis, n)[:, None] - n
+    rim = _safe_unit(proj, m2[:, :, 0], eps=1e-8)
+    out = []
+    for sgn in (-1.0, 1.0):
+        c = x2 + sgn * s2[:, 1:2, None] * axis + s2[:, 0:1, None] * rim
+        d = le.l_dot3(c - x1, n)
+        out.append((d, c - 0.5 * d[:, None] * n, n))
+    return out
+
+
 def _k_plane_box(x1, m1, s1, x2, m2, s2):
     """4-slot plane-box (lane_collision._k_plane_box): the four deepest of the
     eight corners, ties to the lowest corner index. Corner k has signs
@@ -202,6 +222,57 @@ def _segment_segment(p1, q1, p2, q2):
     return p1 + s[:, None] * d1, p2 + t_cl[:, None] * d2
 
 
+def _closest_seg_point(a, b, p):
+    """The point of segment a-b closest to p ((P, 3, B) each)."""
+    ab = b - a
+    t = torch.clamp(le.l_dot3(p - a, ab) / torch.clamp(le.l_dot3(ab, ab), min=1e-12), 0.0, 1.0)
+    return a + t[:, None] * ab
+
+
+def _ez(like):
+    ez = torch.zeros_like(like)
+    ez[:, 2] = 1.0
+    return ez
+
+
+def _k_sphere_capsule(x1, m1, s1, x2, m2, s2):
+    """1-slot sphere-capsule (lane_collision._k_sphere_capsule): the closest
+    point of the capsule's segment."""
+    axis = m2[:, :, 2]
+    h2 = s2[:, 1, None, None]
+    delta = _closest_seg_point(x2 - h2 * axis, x2 + h2 * axis, x1) - x1
+    dn = torch.sqrt(torch.clamp(le.l_dot3(delta, delta), min=1e-24))
+    n = _safe_unit(delta, _ez(delta))
+    d = dn - s1[:, 0:1] - s2[:, 0:1]
+    return [(d, x1 + n * (s1[:, 0:1] + 0.5 * d)[:, None], n)]
+
+
+def _k_sphere_box(x1, m1, s1, x2, m2, s2):
+    """1-slot sphere-box (lane_collision._k_sphere_box): the box's closest
+    point, or with the centre inside, the face of least gap (the first axis
+    among equal gaps)."""
+    dtype = x1.dtype
+    local = torch.sum(m2 * (x1 - x2)[:, :, None], dim=1)  # m2^T v
+    size = s2[:, :, None]
+    clamped = torch.maximum(torch.minimum(local, size), -size)
+    inside = torch.all(torch.abs(local) < size, dim=1)
+    delta_out = local - clamped
+    dn_out = torch.sqrt(torch.clamp(le.l_dot3(delta_out, delta_out), min=1e-24))
+    n_out = delta_out / torch.clamp(dn_out, min=1e-12)[:, None]
+    gaps = size - torch.abs(local)
+    gmin = torch.amin(gaps, dim=1)
+    sel = first_true_onehot([gaps[:, i] == gmin for i in range(3)])
+    ohax = torch.stack([s_.to(dtype) for s_ in sel], dim=1)
+    n_in = torch.sign(torch.sum(local * ohax, dim=1))[:, None] * ohax
+    dn_in = -gmin
+    n_local = torch.where(inside[:, None], n_in, n_out)
+    n = torch.sum(m2 * (-n_local)[:, None], dim=2)  # m2 v
+    d = torch.where(inside, dn_in, dn_out) - s1[:, 0:1]
+    surf_local = torch.where(inside[:, None], local - dn_in[:, None] * n_in, clamped)
+    surf = x2 + torch.sum(m2 * surf_local[:, None], dim=2)
+    return [(d, surf + 0.5 * d[:, None] * n, n)]
+
+
 def _k_capsule_capsule(x1, m1, s1, x2, m2, s2):
     """1-slot capsule-capsule (lane_collision._k_capsule_capsule): the
     closest points of the two segments."""
@@ -210,9 +281,7 @@ def _k_capsule_capsule(x1, m1, s1, x2, m2, s2):
     p1c, p2c = _segment_segment(x1 - h1 * a1, x1 + h1 * a1, x2 - h2 * a2, x2 + h2 * a2)
     delta = p2c - p1c
     dn = torch.sqrt(torch.clamp(le.l_dot3(delta, delta), min=1e-24))
-    ez = torch.zeros_like(delta)
-    ez[:, 2] = 1.0
-    n = _safe_unit(delta, ez)
+    n = _safe_unit(delta, _ez(delta))
     d = dn - s1[:, 0:1] - s2[:, 0:1]
     return [(d, p1c + n * (s1[:, 0:1] + 0.5 * d)[:, None], n)]
 
@@ -241,6 +310,20 @@ def _cyl_correction(d, n, axis, r):
     """Distance correction of a capsule's rounded end to a cylinder's rim."""
     na = torch.clamp(torch.abs(le.l_dot3(n, axis)), 0.0, 1.0)
     return d + r * (1.0 - torch.sqrt(torch.clamp(1.0 - na * na, min=0.0)))
+
+
+def _k_sphere_cylinder(x1, m1, s1, x2, m2, s2):
+    """1-slot sphere-cylinder (lane_collision._k_sphere_cylinder):
+    sphere-capsule of the cylinder's axis, the distance corrected to the rim."""
+    [(d, p, n)] = _k_sphere_capsule(x1, m1, s1, x2, m2, s2)
+    return [(_cyl_correction(d, n, m2[:, :, 2], s2[:, 0:1]), p, n)]
+
+
+def _k_capsule_cylinder(x1, m1, s1, x2, m2, s2):
+    """1-slot capsule-cylinder (lane_collision._k_capsule_cylinder):
+    capsule-capsule of the cylinder's axis, the distance corrected to the rim."""
+    [(d, p, n)] = _k_capsule_capsule(x1, m1, s1, x2, m2, s2)
+    return [(_cyl_correction(d, n, m2[:, :, 2], s2[:, 0:1]), p, n)]
 
 
 def _k_cylinder_box(x1, m1, s1, x2, m2, s2):
@@ -421,8 +504,12 @@ def _k_box_box(x1, m1, s1, x2, m2, s2):
 _L_KERNELS = {
     (GEOM_PLANE, GEOM_SPHERE): _k_plane_sphere,
     (GEOM_PLANE, GEOM_CAPSULE): _k_plane_capsule,
+    (GEOM_PLANE, GEOM_CYLINDER): _k_plane_cylinder,
     (GEOM_PLANE, GEOM_BOX): _k_plane_box,
+    (GEOM_SPHERE, GEOM_CYLINDER): _k_sphere_cylinder,
+    (GEOM_SPHERE, GEOM_BOX): _k_sphere_box,
     (GEOM_CAPSULE, GEOM_CAPSULE): _k_capsule_capsule,
+    (GEOM_CAPSULE, GEOM_CYLINDER): _k_capsule_cylinder,
     (GEOM_CAPSULE, GEOM_BOX): _k_capsule_box,
     (GEOM_CYLINDER, GEOM_CYLINDER): _k_cylinder_cylinder,
     (GEOM_CYLINDER, GEOM_BOX): _k_cylinder_box,

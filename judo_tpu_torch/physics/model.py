@@ -49,13 +49,17 @@ _DSBL_LIMIT, _DSBL_CONTACT, _DSBL_GRAVITY = 8, 16, 128
 _CONE_PYRAMIDAL = 0
 
 # Pair types with a narrowphase kernel in this port, and their slot counts
-# (the subset of judo_tpu/physics/lane_collision.py:_SLOTS_PER_PAIR ported so
-# far; the others are listed in ROADMAP.md).
+# (judo_tpu/physics/lane_collision.py:_SLOTS_PER_PAIR but for sphere-sphere
+# and sphere-capsule, which no task uses; ROADMAP.md lists them).
 SLOTS_PER_PAIR = {
     (GEOM_PLANE, GEOM_SPHERE): 1,
     (GEOM_PLANE, GEOM_CAPSULE): 2,
+    (GEOM_PLANE, GEOM_CYLINDER): 2,
     (GEOM_PLANE, GEOM_BOX): 4,
+    (GEOM_SPHERE, GEOM_CYLINDER): 1,
+    (GEOM_SPHERE, GEOM_BOX): 1,
     (GEOM_CAPSULE, GEOM_CAPSULE): 1,
+    (GEOM_CAPSULE, GEOM_CYLINDER): 1,
     (GEOM_CAPSULE, GEOM_BOX): 2,
     (GEOM_CYLINDER, GEOM_CYLINDER): 2,
     (GEOM_CYLINDER, GEOM_BOX): 2,
@@ -246,6 +250,17 @@ class PhysicsModel:
         return physics_model_from_numpy(static, arrays, dtype=dtype)
 
 
+def resolve_device(device: Any) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a CUDA GPU and torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch version on the CPU"
+        )
+    return dev
+
+
 @dataclass
 class PhysicsState:
     """Carried state of one simulation (batch via leading dims)."""
@@ -255,8 +270,11 @@ class PhysicsState:
     time: float = 0.0
 
 
-def make_state(m: PhysicsModel, qpos=None, qvel=None, time: float = 0.0, device: Any = "cpu") -> PhysicsState:
-    """Fresh state at the model's reference pose."""
+def make_state(m: PhysicsModel, qpos=None, qvel=None, time: float = 0.0, device: Any = "cuda") -> PhysicsState:
+    """Fresh state at the model's reference pose, on the card unless the
+    caller asks for another device (without a CUDA GPU, ``device="cuda"``
+    raises; pass ``device="cpu"``)."""
+    device = resolve_device(device)
     dtype = m.torch_dtype
     qp = torch.as_tensor(np.asarray(m.qpos0) if qpos is None else qpos, dtype=dtype, device=device)
     qv = torch.zeros(m.nv, dtype=dtype, device=device) if qvel is None else torch.as_tensor(

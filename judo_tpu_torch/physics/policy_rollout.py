@@ -9,8 +9,10 @@ the kernel or raises; for CPU tensors it runs
 ``spot_policy_step_l`` in a Python loop over the policy ticks, forces cold at
 the first tick and the probe carried. ``policy_rollout_lanes`` is the public
 entry with the JAX package's batch-first layout. The kernel runs one warp per
-rollout with its scratch in dynamic shared memory (see ``fused_rollout.py``:
-a model that does not fit raises), so rollouts are not padded.
+rollout with its scratch in dynamic shared memory, in the layout the sizes
+pick (see ``fused_rollout.py``: J moves to global memory where the whole
+scratch does not fit, and a model that fits neither way raises), so rollouts
+are not padded.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ import numpy as np
 import torch
 
 from judo_tpu_torch.physics.fused_rollout import (
+    SHARED,
     _check_layout,
     _cuda_lib,
     _sizes,
-    check_smem,
+    choose_layout,
+    jslab,
     model_tensors,
     pack_model,
+    scratch_elems,
     smem_limit,
 )
 from judo_tpu_torch.physics.model import PhysicsModel, num_constraint_rows
@@ -93,23 +98,6 @@ def pack_policy(policy: SpotPolicy, device, dtype) -> tuple:
     return policy._packed[key]
 
 
-def policy_blocks_per_sm(m: PhysicsModel, policy: SpotPolicy, dtype: torch.dtype) -> tuple[int, int]:
-    """(shared-memory bytes per block, resident blocks per SM) of the policy
-    rollout kernel for ``m`` and ``policy`` on the current card."""
-    from judo_tpu_torch import _build
-
-    lib = _build.load("cuda")
-    sizes = _sizes(m, 1, 1, 1, None)
-    _check_layout(lib, m, sizes)
-    nbytes = int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), max(policy.dims)))
-    nbytes *= torch.empty((), dtype=dtype).element_size()
-    blocks = ctypes.c_int()
-    err = lib.jt_policy_blocks_per_sm(int(dtype == torch.float64), nbytes, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"occupancy query failed: {lib.jt_error_string(err).decode()}")
-    return nbytes, blocks.value
-
-
 def _check_inputs(m: PhysicsModel, policy: SpotPolicy, qpos, qvel, pout0, cmds):
     B = qpos.shape[-1]
     if policy.dims[0] != 84 or policy.dims[-1] != NPOUT or m.nu != 19:
@@ -125,8 +113,9 @@ def _check_inputs(m: PhysicsModel, policy: SpotPolicy, qpos, qvel, pout0, cmds):
         raise ValueError(f"unsupported dtype {qpos.dtype}")
 
 
-def _launch(lib, m, policy, qpos, qvel, pout0, cmds, substeps, iterations, stream):
-    """Run the library's fused policy rollout on contiguous tensors."""
+def _launch(lib, m, policy, qpos, qvel, pout0, cmds, substeps, iterations, stream, layout=None):
+    """Run the library's fused policy rollout on contiguous tensors; ``layout``
+    as in fused_rollout.py:_launch."""
     B, T = qpos.shape[-1], cmds.shape[0]
     dev, dtype = qpos.device, qpos.dtype
     sizes = _sizes(m, B, T, substeps, iterations)
@@ -134,16 +123,18 @@ def _launch(lib, m, policy, qpos, qvel, pout0, cmds, substeps, iterations, strea
     mi, mf = model_tensors(m, dev, dtype)
     pi, pf, maxw = pack_policy(policy, dev, dtype)
     c = pack_model(m)["counts"]
-    if qpos.is_cuda:
-        per_rollout = int(lib.jt_policy_scratch_per_lane(ctypes.byref(sizes), maxw))
-        check_smem(per_rollout * qpos.element_size(), smem_limit(lib), "fused_policy_rollout")
+    if layout is not None:
+        scratch_elems(lib, sizes, layout, maxw)
+    else:
+        limit = smem_limit(lib) if qpos.is_cuda else None
+        choose_layout(lib, sizes, qpos.element_size(), "fused_policy_rollout", maxw, limit)
     ins = [x.contiguous() for x in (qpos, qvel, pout0, cmds)]
     oq = torch.empty((T, m.nq, B), dtype=dtype, device=dev)
     ov = torch.empty((T, m.nv, B), dtype=dtype, device=dev)
     os_ = torch.empty((T, c["ns_"], B), dtype=dtype, device=dev)
     op = torch.empty((T, NPOUT, B), dtype=dtype, device=dev)
     fn = lib.jt_fused_policy_rollout_f64 if dtype == torch.float64 else lib.jt_fused_policy_rollout_f32
-    args = [mi, mf, pi, pf, *ins, oq, ov, os_, op]
+    args = [mi, mf, pi, pf, *ins, oq, ov, os_, op, jslab(lib, sizes, B, dtype, dev)]
     err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], maxw, stream)
     if err != 0:
         raise RuntimeError(f"fused_policy_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
@@ -179,14 +170,16 @@ def fused_policy_rollout(
 fused_policy_rollout.launches = 0
 
 
-def fused_policy_rollout_host_twin(m, policy, qpos, qvel, pout0, cmds, substeps: int = 2, iterations=None):
+def fused_policy_rollout_host_twin(m, policy, qpos, qvel, pout0, cmds, substeps: int = 2, iterations=None,
+                                   layout: str = SHARED):
     """The kernel's own code built with g++ and run on the CPU, one rollout
     after another, with the warp's 32 lanes played in one thread in the
-    card's order (csrc/fused_policy_rollout_host.cpp). For tests."""
+    card's order (csrc/fused_policy_rollout_host.cpp), in scratch layout
+    ``layout``. For tests."""
     _check_inputs(m, policy, qpos, qvel, pout0, cmds)
     from judo_tpu_torch import _build
 
-    return _launch(_build.load("host"), m, policy, qpos, qvel, pout0, cmds, substeps, iterations, None)
+    return _launch(_build.load("host"), m, policy, qpos, qvel, pout0, cmds, substeps, iterations, None, layout)
 
 
 def policy_rollout_lanes(

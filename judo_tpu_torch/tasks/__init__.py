@@ -1,5 +1,5 @@
-"""Task registry: every task of the JAX package except four Spot tasks
-(spot_base, spot_box_push, spot_tire_roll, spot_tire_upright), still to port."""
+"""Task registry: every task the JAX package registers, in its order
+(``spot_base``, a base class, is registered in neither)."""
 
 from typing import Type
 
@@ -10,7 +10,10 @@ from judo_tpu_torch.tasks.cylinder_push import CylinderPush, CylinderPushConfig
 from judo_tpu_torch.tasks.fr3_pick import FR3Pick, FR3PickConfig
 from judo_tpu_torch.tasks.leap_cube import LeapCube, LeapCubeConfig
 from judo_tpu_torch.tasks.leap_cube_down import LeapCubeDown, LeapCubeDownConfig
+from judo_tpu_torch.tasks.spot.spot_box_push import SpotBoxPush, SpotBoxPushConfig
 from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate, SpotNavigateConfig
+from judo_tpu_torch.tasks.spot.spot_tire_roll import SpotTireRoll, SpotTireRollConfig
+from judo_tpu_torch.tasks.spot.spot_tire_upright import SpotTireUpright, SpotTireUprightConfig
 
 _registered_tasks: dict[str, tuple[Type[Task], Type[TaskConfig]]] = {}
 
@@ -23,11 +26,15 @@ def get_registered_tasks() -> dict[str, tuple[Type[Task], Type[TaskConfig]]]:
     return _registered_tasks
 
 
-for _cls in (Cartpole, CylinderPush, FR3Pick, LeapCube, LeapCubeDown, CaltechLeapCube, SpotNavigate):
+for _cls in (
+    Cartpole, CylinderPush, FR3Pick, LeapCube, LeapCubeDown, CaltechLeapCube, SpotNavigate, SpotBoxPush, SpotTireRoll,
+    SpotTireUpright,
+):
     register_task(_cls.name, _cls)
 
 __all__ = [
     "CaltechLeapCube", "CaltechLeapCubeConfig", "Cartpole", "CartpoleConfig", "CylinderPush", "CylinderPushConfig",
-    "FR3Pick", "FR3PickConfig", "LeapCube", "LeapCubeConfig", "LeapCubeDown", "LeapCubeDownConfig", "SpotNavigate",
-    "SpotNavigateConfig", "Task", "TaskConfig", "get_registered_tasks", "register_task",
+    "FR3Pick", "FR3PickConfig", "LeapCube", "LeapCubeConfig", "LeapCubeDown", "LeapCubeDownConfig", "SpotBoxPush",
+    "SpotBoxPushConfig", "SpotNavigate", "SpotNavigateConfig", "SpotTireRoll", "SpotTireRollConfig", "SpotTireUpright",
+    "SpotTireUprightConfig", "Task", "TaskConfig", "get_registered_tasks", "register_task",
 ]

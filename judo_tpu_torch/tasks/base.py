@@ -22,7 +22,9 @@ from typing import Any, Generic, TypeVar
 import numpy as np
 import torch
 
-from judo_tpu_torch.physics.model import SENSOR_FRAMEPOS, PhysicsModel, load_snapshot, put_model, snapshot_dict
+from judo_tpu_torch.physics.model import (
+    SENSOR_FRAMEPOS, PhysicsModel, load_snapshot, put_model, resolve_device, snapshot_dict,
+)
 
 SNAPSHOT_DIR = Path(__file__).resolve().parents[1] / "models"
 
@@ -33,17 +35,6 @@ class TaskConfig:
 
 
 ConfigT = TypeVar("ConfigT", bound=TaskConfig)
-
-
-def resolve_device(device: Any) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} needs a CUDA GPU and torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch version on the CPU"
-        )
-    return dev
 
 
 def config_to_params(cfg: Any, dtype: torch.dtype, device: Any) -> dict[str, Any]:
@@ -107,6 +98,7 @@ class Task(Generic[ConfigT]):
         self.time = 0.0
         self.qpos = np.asarray(m64.qpos0, np.float64).copy()
         self.qvel = np.zeros(m64.nv)
+        self._constants: dict = {}
 
     # --- model source ---
     @classmethod
@@ -179,6 +171,19 @@ class Task(Generic[ConfigT]):
         self.time = 0.0
 
     # --- device-side pure functions ---
+    def on_device(self, name: str, values, like: torch.Tensor) -> torch.Tensor:
+        """Host values as a tensor on ``like``'s device and dtype, uploaded
+        again only when they change: a copy from pageable host memory waits
+        for the device's queue, so an upload on every solve would serialize
+        pipelined solves."""
+        values = np.asarray(values, np.float64)
+        key = (name, like.dtype, like.device)
+        held = self._constants.get(key)
+        if held is None or held[0] != values.tobytes():
+            held = (values.tobytes(), torch.as_tensor(values, dtype=like.dtype, device=like.device))
+            self._constants[key] = held
+        return held[1]
+
     def task_params(self) -> dict[str, Any]:
         return config_to_params(self.config, self.dtype, self.device)
 

@@ -167,7 +167,7 @@ class FR3Pick(Task[FR3PickConfig]):
         qvel_norm = torch.linalg.norm(states[..., nq : nq + nv], dim=-1)
         gripper_pos = arm_pos[..., -1]
 
-        q_arm_goal = torch.as_tensor(QPOS_HOME[self.arm_pos_slice], dtype=states.dtype, device=states.device)
+        q_arm_goal = self.on_device("q_arm_goal", QPOS_HOME[self.arm_pos_slice], states)
         grasp_dist = torch.square(grasp_pos - obj_pos).sum(-1)
         pick_height_err = torch.square(z_obj - params["pick_height"])
         goal_dist = torch.linalg.norm(obj_xy - params["goal_pos"], dim=-1)
@@ -183,7 +183,7 @@ class FR3Pick(Task[FR3PickConfig]):
         rewards = torch.index_select(phase_rewards, -1, idx)[..., 0]
 
         hand_touching = (lf_table <= 0.0) | (rf_table <= 0.0)
-        down = torch.tensor([0.0, 0.0, -1.0], dtype=states.dtype, device=states.device)
+        down = self.on_device("down", [0.0, 0.0, -1.0], states)
         rew_upright = -torch.linalg.norm(ee_z - down, dim=-1).sum(-1)
         rew_coll = (1.0 - hand_touching.to(states.dtype)).sum(-1)
         time_decay = torch.linspace(1.0, 0.0, states.shape[1], dtype=states.dtype, device=states.device)

@@ -78,8 +78,8 @@ class LeapCube(Task[LeapCubeConfig]):
         metadata = system_metadata or {}
         goal_quat = metadata.get("goal_quat")
         if goal_quat is None:
-            goal_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=states.dtype, device=states.device)
-        goal_pos = torch.as_tensor(self.goal_pos, dtype=states.dtype, device=states.device)
+            goal_quat = self.on_device("identity_quat", [1.0, 0.0, 0.0, 0.0], states)
+        goal_pos = self.on_device("goal_pos", self.goal_pos, states)
         pos_diff = states[..., :3] - goal_pos
         quat_err = quat_diff_so3(states[..., 3:7], goal_quat)
         pos_cost = params["w_pos"] * 0.5 * torch.square(pos_diff).sum(-1).mean(-1)

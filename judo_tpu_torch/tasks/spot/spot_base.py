@@ -5,7 +5,10 @@ The planner's action is a compact vector, mapped to the 25-dim policy command
 locomotion policy in the rollout turns the command into position targets
 (``tasks/spot/policy.py``). The planning model keeps ground contacts and
 object contacts and drops the robot's self-collision (``_spot_planner_pairs``,
-applied when the model is lowered).
+applied when the model is lowered). A scene with an object (a box or a tire)
+names the object's free joint in ``object_joint``; its qpos and qvel
+addresses and the sensor addresses the rewards read are lowered with the
+model into ``extras``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import numpy as np
 import torch
 
 from judo_tpu_torch.models.spot import spot_xml
+from judo_tpu_torch.physics.lane_engine import kinematics_l
+from judo_tpu_torch.physics.lane_step import evaluate_sensors_l
 from judo_tpu_torch.physics.model import PhysicsModel
 from judo_tpu_torch.tasks.base import Task, TaskConfig, model_from_mujoco
 from judo_tpu_torch.tasks.spot import spot_constants as sc
@@ -32,6 +37,8 @@ class SpotBaseConfig(TaskConfig):
 
 
 ConfigT = TypeVar("ConfigT", bound=SpotBaseConfig)
+# Sensors the object tasks' rewards read, by name (models/spot.py).
+OBJECT_TASK_SENSORS = ("object_y_axis", "trace_fngr_site", "fl_pos", "fr_pos")
 
 
 def _spot_planner_pairs(m, g1: int, g2: int) -> bool:
@@ -53,6 +60,7 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
     use_gripper: bool = False
     use_legs: bool = False
     use_torso: bool = False
+    object_joint: str | None = None  # the free joint of the scene's object
 
     def __init__(self, device: Any = "cuda", dtype: torch.dtype = torch.float32) -> None:
         super().__init__(device=device, dtype=dtype)
@@ -62,6 +70,10 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
             [0, 0, 0, *sc.ARM_STOWED_POS, *([0.0] * 12), 0, 0, sc.STANDING_HEIGHT_CMD]
         )
         self.body_pose_idx = int(self.extras["body_pose_idx"])
+        if self.object_joint is not None:
+            self.object_pose_idx = int(self.extras["object_pose_idx"])
+            self.object_vel_idx = int(self.extras["object_vel_idx"])
+            self.sensor_adr = {n: int(self.extras[f"sensor_adr_{n}"]) for n in OBJECT_TASK_SENSORS}
         self.reset()
 
     @classmethod
@@ -70,7 +82,13 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
 
         m, extras = model_from_mujoco(spot_xml(cls.name), cls.planning_solver_iterations, _spot_planner_pairs)
         mj = mujoco.MjModel.from_xml_string(spot_xml(cls.name))
-        return m, {**extras, "body_pose_idx": np.int64(mj.jnt_qposadr[mj.joint("base").id])}
+        extras["body_pose_idx"] = np.int64(mj.jnt_qposadr[mj.joint("base").id])
+        if cls.object_joint is not None:
+            joint = mj.joint(cls.object_joint).id
+            extras["object_pose_idx"] = np.int64(mj.jnt_qposadr[joint])
+            extras["object_vel_idx"] = np.int64(mj.jnt_dofadr[joint])
+            extras.update({f"sensor_adr_{n}": np.int64(mj.sensor(n).adr[0]) for n in OBJECT_TASK_SENSORS})
+        return m, extras
 
     # --- action space (spot_base.py:84-108, 127-147) ---
     def _default_command(self) -> np.ndarray:
@@ -123,7 +141,7 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
         grip_sel_end = arm_end + (1 if (self.use_arm and self.use_gripper) else 0)
         legs_end = grip_sel_end + (6 if self.use_legs else 0)
         leg_sel_end = legs_end + (1 if self.use_legs else 0)
-        out = torch.as_tensor(self.default_policy_command, dtype=controls.dtype, device=controls.device)
+        out = self.on_device("default_policy_command", self.default_policy_command, controls)
         out = out.expand(*controls.shape[:-1], 25).clone()
         out[..., 0:3] = controls[..., 0:3]
         if self.use_arm:
@@ -159,3 +177,13 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
         self.qpos = self.reset_pose.astype(np.float64)
         self.qvel = np.zeros(self.nv)
         self.time = 0.0
+
+    def current_sensors(self) -> np.ndarray:
+        """The sensor values at the task's state (``qpos``, ``qvel``): what
+        mujoco's ``sensordata`` holds after ``mj_forward``, evaluated on the
+        host with the plain step's sensor code, in float64 on the planning
+        model's values."""
+        q = torch.tensor(self.qpos, dtype=torch.float64)[:, None]
+        v = torch.tensor(self.qvel, dtype=torch.float64)[:, None]
+        m = self.planning_model
+        return evaluate_sensors_l(m, kinematics_l(m, q), q, v)[:, 0].numpy()

@@ -9,7 +9,6 @@ Rewards and nominal knots agree within 1e-6.
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from judo_tpu.controller import Controller as JaxController
@@ -18,7 +17,6 @@ from judo_tpu.optimizers.mppi import MPPI as JaxMPPI
 from judo_tpu.optimizers.mppi import MPPIConfig as JaxMPPIConfig
 from judo_tpu.tasks.leap_cube import LeapCube as JaxLeapCube
 from judo_tpu_torch.controller import make_controller
-from judo_tpu_torch.controller.controller import PIPELINE_ROADMAP_ITEM
 from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
 R, N, NU = 8, 4, 16
@@ -62,11 +60,3 @@ def test_update_action_matches_jax_controller():
     np.testing.assert_allclose(ours.traces, np.asarray(ref.traces), atol=1e-6, rtol=0)
     np.testing.assert_allclose(ours.action(0.05), ref.action(0.05), atol=1e-6)
     assert set(ours.last_plan_timing) == {"prep_ms", "device_ms", "sync_ms", "total_ms"}
-
-
-def test_pipeline_depth_raises_with_roadmap_item():
-    c = make_controller("leap_cube", "mppi", device="cpu", dtype=torch.float64, seed=0)
-    c.controller_cfg.pipeline_depth = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.update_action()
-    assert "pipeline_depth" in PIPELINE_ROADMAP_ITEM

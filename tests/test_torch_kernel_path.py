@@ -90,17 +90,25 @@ def test_host_twin_matches_plain_version(scene):
 
 
 def test_shared_memory_limit_raises():
-    """A rollout whose scratch exceeds the card's per-block limit raises,
-    naming the bytes and the limit (leap in float64 needs more than the
-    48 KB a block gets without opting in)."""
+    """The scratch layout follows the card's per-block limit: the whole
+    scratch in shared memory where it fits, else J in global memory, and a
+    rollout whose scratch fits neither way raises, naming the bytes and the
+    limit (leap in float64 needs more than the 48 KB a block gets without
+    opting in, with or without its J)."""
     from judo_tpu_torch import _build
 
+    lib = _build.load("host")
     m = put_model(mujoco.MjModel.from_xml_path(leap_cube_xml_path()), dtype=np.float64, solver_iterations=8)
-    nbytes = fr._check_layout(_build.load("host"), m, fr._sizes(m, 1, 1, 1, None)) * 8
-    assert 48 * 1024 < nbytes < 227 * 1024
-    fr.check_smem(nbytes, 227 * 1024, "fused_rollout")
+    sizes = fr._sizes(m, 1, 1, 1, None)
+    nbytes = fr.scratch_elems(lib, sizes, fr.SHARED) * 8
+    rest = fr.scratch_elems(lib, sizes, fr.GLOBAL_J) * 8
+    assert nbytes - rest == 8 * num_constraint_rows(m) * (m.nv | 1) and 48 * 1024 < rest < nbytes < 227 * 1024
+    assert fr.choose_layout(lib, sizes, 8, "fused_rollout", None, 227 * 1024) == (fr.SHARED, nbytes)
+    assert sizes.jglobal == 0
+    assert fr.choose_layout(lib, sizes, 8, "fused_rollout", None, rest) == (fr.GLOBAL_J, rest)
+    assert sizes.jglobal == 1
     with pytest.raises(RuntimeError, match=rf"{nbytes} bytes .* limit of 49152 bytes"):
-        fr.check_smem(nbytes, 48 * 1024, "fused_rollout")
+        fr.choose_layout(lib, sizes, 8, "fused_rollout", None, 48 * 1024)
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_checks_shapes():

@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax.numpy as jnp
 import mujoco
@@ -23,7 +24,10 @@ from judo_tpu.physics.solver import num_constraint_rows as jax_nefc
 from judo_tpu.physics.solver import num_noncontact_rows as jax_noncontact
 from judo_tpu.tasks import get_registered_tasks as jax_registered_tasks
 from judo_tpu_torch.physics import model as tm
-from judo_tpu_torch.tasks import CaltechLeapCube, Cartpole, CylinderPush, FR3Pick, LeapCube, LeapCubeDown, SpotNavigate
+from judo_tpu_torch.tasks import (
+    CaltechLeapCube, Cartpole, CylinderPush, FR3Pick, LeapCube, LeapCubeDown, SpotBoxPush, SpotNavigate, SpotTireRoll,
+    SpotTireUpright,
+)
 
 from .test_physics.test_parity import CARTPOLE, SPHERE_PLANE
 
@@ -65,9 +69,12 @@ def test_row_counters_match_jax():
 
 def test_make_state_defaults_to_reference_pose():
     pm = tm.put_model(mujoco.MjModel.from_xml_string(CARTPOLE), dtype=np.float64)
-    st = tm.make_state(pm, qvel=[0.5, -0.5], time=1.5)
+    st = tm.make_state(pm, qvel=[0.5, -0.5], time=1.5, device="cpu")
     np.testing.assert_array_equal(st.qpos.numpy(), pm.qpos0)
     assert st.qvel.tolist() == [0.5, -0.5] and st.time == 1.5 and st.qpos.dtype == pm.torch_dtype
+    with mock.patch("torch.cuda.is_available", return_value=False):  # the card is the default device
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            tm.make_state(pm)
 
 
 def test_mujoco_codes_match():
@@ -103,7 +110,10 @@ def test_lane_supported_raises_naming_pairs():
     tm.lane_supported(sphere_plane)
 
 
-@pytest.mark.parametrize("task", [LeapCube, SpotNavigate, Cartpole, CylinderPush, FR3Pick, LeapCubeDown, CaltechLeapCube])
+@pytest.mark.parametrize("task", [
+    LeapCube, SpotNavigate, Cartpole, CylinderPush, FR3Pick, LeapCubeDown, CaltechLeapCube, SpotBoxPush, SpotTireRoll,
+    SpotTireUpright,
+])
 def test_committed_snapshot_is_current(task):
     """The snapshot the GPU machine plans from equals a fresh export and the
     JAX package's planning model of the same task."""

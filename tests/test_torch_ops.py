@@ -10,12 +10,13 @@ import torch
 from scipy.interpolate import interp1d
 
 from judo_tpu.ops.math import quat_diff_so3 as jax_quat_diff_so3
+from judo_tpu.ops.math import quat_rotate as jax_quat_rotate
 from judo_tpu.ops.splines import eval_spline as jax_eval_spline
 from judo_tpu.optimizers.mppi import MPPI as JaxMPPI
 from judo_tpu.optimizers.mppi import MPPIConfig as JaxMPPIConfig
 from judo_tpu.utils import normalization as jax_norm
 from judo_tpu_torch.ops.costs import quadratic_norm, smooth_l1_norm
-from judo_tpu_torch.ops.math import quat_diff_so3
+from judo_tpu_torch.ops.math import quat_diff_so3, quat_rotate
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers.mppi import MPPI, MPPIConfig
 from judo_tpu_torch.utils import normalization as norm
@@ -51,6 +52,19 @@ def test_quat_diff_so3_matches_jax():
     v /= np.linalg.norm(v)
     ours = quat_diff_so3(torch.tensor(u), torch.tensor(v)).numpy()
     np.testing.assert_allclose(ours, np.asarray(jax_quat_diff_so3(jnp.asarray(u), jnp.asarray(v))), atol=TOL)
+
+
+@pytest.mark.parametrize("batched", ["vectors", "quaternions"])
+def test_quat_rotate_matches_jax(batched):
+    """One quaternion over a batch of vectors (as spot_tire_upright's reward
+    uses it), and a batch of quaternions over one vector."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((5, 7, 4) if batched == "quaternions" else 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    v = rng.standard_normal(3 if batched == "quaternions" else (5, 7, 3))
+    ours = quat_rotate(torch.tensor(q), torch.tensor(v)).numpy()
+    assert ours.shape == (5, 7, 3)
+    np.testing.assert_allclose(ours, np.asarray(jax_quat_rotate(jnp.asarray(q), jnp.asarray(v))), atol=TOL, rtol=0)
 
 
 def test_costs():

@@ -187,9 +187,3 @@ def test_entry_points_default_to_cuda_and_refuse_without_gpu():
                       lambda: make_controller("leap_cube", "mppi")):
             with pytest.raises(RuntimeError, match="pass device='cpu'"):
                 build()
-
-
-@pytest.mark.parametrize("name", ["spot_box_push", "spot_tire_roll", "spot_tire_upright"])
-def test_unported_spot_tasks_raise(name):
-    with pytest.raises(NotImplementedError, match=name):
-        make_controller(name, "mppi", device="cpu")

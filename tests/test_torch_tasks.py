@@ -22,7 +22,6 @@ from judo_tpu.controller import ControllerConfig as JaxControllerConfig
 from judo_tpu.optimizers import get_registered_optimizers as jax_registered_optimizers
 from judo_tpu.tasks import get_registered_tasks as jax_registered_tasks
 from judo_tpu_torch.controller import make_controller
-from judo_tpu_torch.controller.controller import UNPORTED_TASKS
 from judo_tpu_torch.tasks import get_registered_tasks
 from judo_tpu_torch.tasks.fr3_pick import Phase
 
@@ -97,11 +96,12 @@ def test_every_task_builds_and_solves(name, opt):
     assert np.all(np.isfinite(c.rewards)) and c.rewards.shape == (3,) and np.all(np.isfinite(c.nominal_knots))
 
 
-@pytest.mark.parametrize("name", UNPORTED_TASKS)
-def test_unported_tasks_raise_naming_themselves(name):
-    assert name.startswith("spot_")
-    with pytest.raises(NotImplementedError, match=name):
-        make_controller(name, "ps", device="cpu")
+def test_registry_matches_jax():
+    """Every task the JAX package registers, in its order; ``spot_base``, a
+    base class, is refused as an unknown task in both packages."""
+    assert list(get_registered_tasks()) == list(jax_registered_tasks())
+    with pytest.raises(KeyError, match="spot_base"):
+        make_controller("spot_base", "mppi", device="cpu")
 
 
 R = 4
