@@ -57,6 +57,19 @@ without the final line):
      the flushed depth-2 run must have published depth 0's mirrors, bitwise;
      one depth-2 call under torch.cuda.set_sync_debug_mode("warn"), whose
      warnings (each an operation that waits for the card) must be none;
+   - the plant: 20 ticks of JTSimulation (K3 at a batch of one, on a CUDA
+     stream of its own) on leap_cube from its reset, float64 and float32,
+     each tick against the plain version on the card from the same state;
+     one tick dispatched while a leap solve (320 rollouts, depth 2) is in
+     flight, which must end before the solve does;
+   - the closed loop: judo_tpu_torch.cli.main(["run", ...]) with the
+     judo_tpu plant for 5 s, leap_cube + mppi (320 rollouts, set as a launch
+     config's override sets them) and the CLI's default cylinder_push + ps;
+     K3 launches equal the plant's ticks, K1 launches the plans and the
+     warm-up, every published state is finite, the run ends with "shutdown
+     complete";
+   - the harness: run_benchmark on leap_cube and cylinder_push with mppi and
+     ps, the judo_tpu plant, 20 plans each, printed by format_table;
 5. one float64 solve per path, cuda against cpu with shared noise (leap and
    spot with MPPI, cylinder_push with PS, fr3_pick with CEM, spot_box_push
    with MPPI, whose float64 kernel runs with J in global memory);
@@ -66,7 +79,9 @@ without the final line):
    cylinder_push (32 rollouts, T 52) and fr3_pick (64, T 252); K2 also with
    no physics substeps, which leaves the policy's share of a tick, and on the
    three object scenes at R 24, T 100 x 2 (their plain version timed over 3
-   ticks).
+   ticks); K3 at the plant's shape (leap, one environment, the model's own
+   solver iterations), the shape of its row in the kernels line, and at 320
+   rollouts.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -107,6 +122,9 @@ TIRE_TILT, T_FLAT = 0.5, 1
 # Rollouts of the K1 checks per scene, and of the K3 check.
 K1_B = {"leap": (B_MAIN, 33), "cylinder_push": (32, 33), "fr3": (64, 33)}
 K3_B = {"leap": B_MAIN, "spot": R_SPOT, "fr3": 64}
+# The plant phase: ticks of JTSimulation on leap_cube per dtype; the closed
+# loops' length in seconds; the harness's plans per pair.
+PLANT_TICKS, LOOP_SECONDS, HARNESS_SAMPLES = 20, 5, 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -120,6 +138,10 @@ def card_info() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def pcts(ms) -> str:
+    return f"p50 {np.percentile(ms, 50):.3f} ms p95 {np.percentile(ms, 95):.3f} ms"
 
 
 def tensor(x, dtype, device):
@@ -610,6 +632,106 @@ def step_path() -> dict:
     return {"counts": counts}
 
 
+def plant_path(dtype_name: str) -> dict:
+    """K3 as the plant: PLANT_TICKS ticks of JTSimulation on leap_cube, from
+    its reset with the reset command held, each tick against the plain
+    version on the card from the same state."""
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import num_constraint_rows, physics_step_reference
+    from judo_tpu_torch.simulation import JTSimulation
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+
+    dtype = torch.float64 if dtype_name == "f64" else torch.float32
+    task = LeapCube(device="cuda", dtype=dtype, seed=0)
+    sim = JTSimulation(task)
+    m, ctrl = task.planning_model, task.reset_command
+    f = torch.zeros((max(num_constraint_rows(m), 1), 1), dtype=dtype, device="cuda")
+    col = lambda x: tensor(np.asarray(x)[:, None], dtype, "cuda")  # noqa: E731
+    err, host_ms = 0.0, []
+    reset_counts()
+    for _ in range(PLANT_TICKS):
+        ref = physics_step_reference(m, col(task.qpos), col(task.qvel), col(ctrl), f)
+        ref_q, ref_v = (x[:, 0].double().cpu().numpy() for x in ref[:2])
+        t0 = time.perf_counter()
+        sim.step(ctrl)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        err = max(err, float(np.abs(task.qpos - ref_q).max()), float(np.abs(task.qvel - ref_v).max()))
+    counts = read_counts()
+    if counts["physics_step"] != PLANT_TICKS or not np.isfinite(np.r_[task.qpos, task.qvel]).all():
+        raise RuntimeError(f"plant: launches {counts} in {PLANT_TICKS} ticks, finite state "
+                           f"{bool(np.isfinite(np.r_[task.qpos, task.qvel]).all())}")
+    return {"err": err, "counts": counts, "host_ms": host_ms}
+
+
+def plant_beside_solve() -> dict:
+    """One plant tick dispatched while a leap solve (320 rollouts, f32) is in
+    flight: the controller at pipeline_depth 2 returns once its solve is
+    queued on its stream; the tick then runs on the plant's own stream."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+    from judo_tpu_torch.simulation import JTSimulation
+    from judo_tpu_torch.tasks.leap_cube import QPOS_REST, LeapCube
+
+    c = make_controller("leap_cube", "mppi", device="cuda", dtype=torch.float32, seed=0)
+    c.optimizer_cfg.num_rollouts = B_MAIN
+    c.controller_cfg.pipeline_depth = 2
+    c.current_state = np.concatenate([QPOS_REST, np.zeros(c.pm.nv)])
+    task = LeapCube(device="cuda", dtype=torch.float32, seed=0)
+    sim = JTSimulation(task)
+    c.update_action()
+    c.flush_pipeline()
+    sim.step(task.reset_command)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    c.update_action()
+    end.record()
+    t0 = time.perf_counter()
+    sim.step(task.reset_command)
+    tick_host_ms = 1e3 * (time.perf_counter() - t0)
+    solve_ended_first = end.query()
+    torch.cuda.synchronize()
+    out = {"solve_ms": start.elapsed_time(end), "tick_done_ms": start.elapsed_time(sim.tick_done),
+           "tick_host_ms": tick_host_ms, "solve_ended_first": solve_ended_first}
+    c.flush_pipeline()
+    return out
+
+
+def closed_loop(task: str, optimizer: str) -> dict:
+    """``judo_tpu_torch.cli.main(["run", ...])`` with the judo_tpu plant for
+    LOOP_SECONDS, its output captured and echoed."""
+    import contextlib
+    import io
+
+    from judo_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rep = cli.main(["run", "--task", task, "--optimizer", optimizer, "--sim-backend", "judo_tpu", "--seconds",
+                        str(LOOP_SECONDS)])
+    counts = read_counts()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"  {line}")
+    return {"report": rep, "counts": counts, "ended": bool(lines) and lines[-1] == "shutdown complete"}
+
+
+def harness() -> str:
+    """run_benchmark on leap_cube and cylinder_push with MPPI and PS, the
+    judo_tpu plant, on the card; -> format_table."""
+    from judo_tpu_torch.app.benchmark import format_table, run_benchmark
+
+    results = run_benchmark(tasks=["leap_cube", "cylinder_push"], optimizers=["mppi", "ps"],
+                            num_samples=HARNESS_SAMPLES, sim_backend="judo_tpu")
+    for r in results:
+        if r.times_s.shape != (HARNESS_SAMPLES,) or not np.all(np.isfinite(r.times_s)) or r.stages is None:
+            raise RuntimeError(f"harness {r.task} {r.optimizer}: {r.times_s.shape} plan times, stages {r.stages}")
+    return format_table(results)
+
+
 def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> float:
     """One float64 solve with shared noise: cuda vs cpu, largest error of rewards and knots."""
     import torch
@@ -680,6 +802,7 @@ def timing() -> dict:
 
     from judo_tpu_torch.physics.fused_rollout import (
         fused_rollout, num_constraint_rows, physics_step, physics_step_reference, rollout_lanes_reference,
+        solver_iters,
     )
     from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout, policy_rollout_lanes_reference
     from judo_tpu_torch.tasks.leap_cube import LeapCube
@@ -697,7 +820,13 @@ def timing() -> dict:
     k3 = event_ms(lambda: physics_step(m, qp, qv, ct[0], f0, 8), 50)
     k3_plain = event_ms(lambda: physics_step_reference(m, qp, qv, ct[0], f0, 8), 3)
     io = 4 * B_MAIN * (2 * (m.nq + m.nv + ne) + m.nu + m.nsensordata)
-    res["physics_step"] = (k3, k3_plain, *bound_ms(io, B_MAIN * step_flops(m, 8, True)))
+    res[f"physics_step B={B_MAIN}"] = (k3, k3_plain, *bound_ms(io, B_MAIN * step_flops(m, 8, True)))
+    # K3 at the plant's shape: one environment, the model's own solver iterations
+    q1, v1, c1, f1 = (x[:, :1].contiguous() for x in (qp, qv, ct[0], f0))
+    k3 = event_ms(lambda: physics_step(m, q1, v1, c1, f1), 200)
+    k3_plain = event_ms(lambda: physics_step_reference(m, q1, v1, c1, f1), 3)
+    io = 4 * (2 * (m.nq + m.nv + ne) + m.nu + m.nsensordata)
+    res["physics_step"] = (k3, k3_plain, *bound_ms(io, step_flops(m, solver_iters(m, None), True)))
 
     task = SpotNavigate(device="cuda", dtype=f32)
     sm, pol = task.planning_model, task.policy
@@ -895,6 +1024,45 @@ def main() -> int:
         print(f"pipelining {task_name}: every depth-2 call launched its kernel and returned before its solve ended, "
               f"the flushed mirrors are finite and equal depth 0's, and nothing on the dispatch path waited for the "
               f"card: {'ok' if good else 'FAIL'}", flush=True)
+    plant = {}
+    for name in ("f64", "f32"):
+        p = plant[name] = plant_path(name)
+        check(f"plant JTSimulation leap_cube {name}, {PLANT_TICKS} ticks, each vs the plain version on the card "
+              f"from the same state", p["err"], LIMITS[name])
+        print(f"plant {name}: physics_step launches {p['counts']['physics_step']} in {PLANT_TICKS} ticks; tick host "
+              f"time {pcts(p['host_ms'])} (first tick {p['host_ms'][0]:.3f} ms) on {card}", flush=True)
+    b = plant_beside_solve()
+    good = not b["solve_ended_first"] and b["tick_done_ms"] < b["solve_ms"]
+    ok &= good
+    print(f"plant beside a leap solve (R={B_MAIN}, depth 2): the solve ended {b['solve_ms']:.3f} ms after its "
+          f"dispatch began, the plant tick's kernel {b['tick_done_ms']:.3f} ms after; the tick returned after "
+          f"{b['tick_host_ms']:.3f} ms with the solve {'ended' if b['solve_ended_first'] else 'still running'}: "
+          f"{'ok' if good else 'FAIL'} on {card}", flush=True)
+
+    from judo_tpu_torch.config import set_config_overrides
+    from judo_tpu_torch.optimizers import MPPIConfig
+
+    # the main path's rollouts, as a launch config's optimizer_config_overrides set them
+    set_config_overrides("leap_cube", MPPIConfig, {"num_rollouts": B_MAIN})
+    loops = {}
+    for task_name, opt_name in (("leap_cube", "mppi"), ("cylinder_push", "ps")):
+        lp = loops[task_name] = closed_loop(task_name, opt_name)
+        rep, counts = lp["report"], lp["counts"]
+        # one rollout per plan (max_opt_iters 1) and one plan to warm up
+        good = (counts["physics_step"] == rep.ticks > 0 and counts["fused_rollout"] == rep.plans + rep.warmup_plans
+                and rep.plans > 0 and rep.nonfinite_states == 0 and lp["ended"])
+        ok &= good
+        print(f"closed loop {task_name} + {opt_name} R={rep.rollouts} (judo_tpu plant, {LOOP_SECONDS} s): "
+              f"{rep.plans} plans ({pcts(rep.plan_ms)}), {rep.ticks} ticks ({pcts(rep.tick_ms)}), {rep.overruns} "
+              f"overruns; physics_step launches {counts['physics_step']} (ticks {rep.ticks}), fused_rollout "
+              f"launches {counts['fused_rollout']} (plans + {rep.warmup_plans} warm-up); non-finite states "
+              f"{rep.nonfinite_states}; ends with 'shutdown complete': {lp['ended']}: {'ok' if good else 'FAIL'} on "
+              f"{card}", flush=True)
+    print(f"harness: run_benchmark leap_cube and cylinder_push x mppi and ps, judo_tpu plant, cuda f32, "
+          f"{HARNESS_SAMPLES} plans each, on {card}", flush=True)
+    for line in harness().splitlines():
+        print(f"  {line}", flush=True)
+
     for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
                                             ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032),
                                             ("spot_box_push", "mppi", 4, 0.4)):
@@ -903,9 +1071,12 @@ def main() -> int:
               LIMITS["solve_f64"])
 
     t = timing()
+    shapes = {"fused_rollout": f"leap B={B_MAIN} T={T_FULL}", "physics_step": "leap B=1 (the plant's shape)",
+              "fused_policy_rollout": f"spot_navigate R={R_SPOT} T={T_FULL}x2"}
     for name, (ms, plain, bnd, by) in ((k, v) for k, v in t.items() if isinstance(v, tuple) and k[:3] != "k2 "):
-        print(f"time {name} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms, bound {bnd:.4f} ms "
-              f"({by}) on {card}", flush=True)
+        label = f"{name} {shapes[name]}" if name in shapes else name
+        print(f"time {label} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms, bound {bnd:.4g} ms ({by}) on "
+              f"{card}", flush=True)
     print(f"time fused_policy_rollout plain PyTorch per tick: {t['fused_policy_rollout'][1] / T_FULL:.1f} ms",
           flush=True)
     print(f"time fused_policy_rollout f32 with 0 physics substeps (observation, MLP, ctrl): "
@@ -922,7 +1093,9 @@ def main() -> int:
                                                                        for p in new_paths.values()),
                 "fused_policy_rollout": spot["counts"]["fused_policy_rollout"] + sum(
                     new_paths[s]["counts"]["fused_policy_rollout"] for s in OBJECT_TASKS),
-                "physics_step": step["counts"]["physics_step"]}
+                "physics_step": step["counts"]["physics_step"] + sum(p["counts"]["physics_step"]
+                                                                      for p in (*plant.values(), *loops.values()))}
+    launches["fused_rollout"] += sum(lp["counts"]["fused_rollout"] for lp in loops.values())
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
          max(e["states"] for k, e in errs.items() if k[0] == "fused_rollout" and k[1] == "f32")),
@@ -930,7 +1103,7 @@ def main() -> int:
          max(e["states"] for k, e in errs.items() if k[0] == "fused_policy_rollout" and k[1] == "f32"
              and k[2] != "flat tire")),
         ("physics_step", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:71",
-         max(errs[("physics_step", "f32", s)]["states"] for s in K3_B)),
+         max(plant["f32"]["err"], *(errs[("physics_step", "f32", s)]["states"] for s in K3_B))),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],

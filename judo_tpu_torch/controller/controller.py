@@ -187,6 +187,8 @@ class Controller:
         self.dtype = task.dtype
         self.seed = seed
         self.system_metadata: dict[str, Any] = {}
+        self.available_optimizers = get_registered_optimizers()
+        self.available_tasks = get_registered_tasks()
         self.trace_sensors = task.trace_sensor_ids
         # on the device: indexing with a host list would copy it up, and wait, on every solve
         self.trace_inds = torch.as_tensor(
@@ -525,13 +527,9 @@ def make_controller(
 ) -> Controller:
     """A controller from registry names, on ``device`` in ``dtype``. The
     default device is the card; without a CUDA GPU this raises, and the
-    caller passes ``device="cpu"``. The per-task overrides it relies on are
-    registered here on every call."""
-    from judo_tpu_torch.controller.overrides import set_default_controller_overrides
-    from judo_tpu_torch.optimizers.overrides import set_default_optimizer_overrides
-
-    set_default_controller_overrides()
-    set_default_optimizer_overrides()
+    caller passes ``device="cpu"``. The per-task defaults are registered
+    once, when the packages are imported, so a launch config's overrides of
+    them stand."""
     task_entry = get_registered_tasks().get(init_task)
     opt_entry = get_registered_optimizers().get(init_optimizer)
     if task_entry is None:

@@ -5,7 +5,10 @@ from typing import Type
 from judo_tpu_torch.optimizers.base import Optimizer, OptimizerConfig
 from judo_tpu_torch.optimizers.cem import CrossEntropyMethod, CrossEntropyMethodConfig
 from judo_tpu_torch.optimizers.mppi import MPPI, MPPIConfig
+from judo_tpu_torch.optimizers.overrides import set_default_optimizer_overrides
 from judo_tpu_torch.optimizers.ps import PredictiveSampling, PredictiveSamplingConfig
+
+set_default_optimizer_overrides()
 
 _registered_optimizers: dict[str, tuple[Type[Optimizer], Type[OptimizerConfig]]] = {}
 

@@ -29,5 +29,7 @@ class PredictiveSampling(Optimizer[PredictiveSamplingConfig]):
         return torch.cat([nominal[None], nominal[None] + sigma * noise], dim=0), state
 
     def update(self, params: Any, state: Any, samples: torch.Tensor, rewards: torch.Tensor):
-        """The sample of the largest reward; the first one on ties (jnp.argmax)."""
-        return samples[torch.argmax(rewards)], state
+        """The sample of the largest reward; the first one on ties (jnp.argmax).
+        Gathered with a one-element index tensor: a 0-d index is read on the
+        host, which waits for the card."""
+        return samples.index_select(0, torch.argmax(rewards).reshape(1))[0], state

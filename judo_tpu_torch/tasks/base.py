@@ -72,17 +72,24 @@ def model_from_mujoco(xml: str, solver_iterations: int, collision_pair_filter=No
     mj = mujoco.MjSpec.from_string(xml).compile()
     m = put_model(mj, dtype=np.float64, solver_iterations=solver_iterations, collision_pair_filter=collision_pair_filter)
     trace = trace_sensors_from_mujoco(mj)
+    mocap = sorted((b for b in range(mj.nbody) if mj.body_mocapid[b] >= 0), key=lambda b: mj.body_mocapid[b])
     extras = {
         "timestep": np.float64(mj.opt.timestep),
         "trace_sensor_ids": np.asarray(trace, np.int64),
         "trace_sensor_adr": np.asarray([int(mj.sensor_adr[i]) for i in trace], np.int64),
+        "mocap_body_ids": np.asarray(mocap, np.int64),
     }
     return m, extras
 
 
 class Task(Generic[ConfigT]):
     """Planning model + pure reward; subclasses set ``name``, ``config_t`` and
-    implement ``reward`` and ``_model_from_mujoco``."""
+    implement ``reward``, ``model_xml`` and ``_model_from_mujoco``.
+
+    The host-side state a plant steps is ``qpos``, ``qvel``, ``time`` and the
+    mocap bodies' ``mocap_pos`` and ``mocap_quat``; the plant hooks
+    (``pre_sim_step``, ``post_sim_step``, ``get_sim_metadata``) read and write
+    it."""
 
     name: str
     config_t: type[ConfigT]
@@ -98,6 +105,10 @@ class Task(Generic[ConfigT]):
         self.time = 0.0
         self.qpos = np.asarray(m64.qpos0, np.float64).copy()
         self.qvel = np.zeros(m64.nv)
+        mocap = np.asarray(extras["mocap_body_ids"], np.int64)
+        self.mocap_body_ids = mocap
+        self.mocap_pos = np.asarray(m64.body_pos, np.float64)[mocap].copy()
+        self.mocap_quat = np.asarray(m64.body_quat, np.float64)[mocap].copy()
         self._constants: dict = {}
 
     # --- model source ---
@@ -109,6 +120,17 @@ class Task(Generic[ConfigT]):
     def snapshot(cls) -> dict:
         """Snapshot arrays of this task's model built from mujoco now."""
         return snapshot_dict(*cls._model_from_mujoco())
+
+    @classmethod
+    def model_xml(cls) -> str:
+        """The MJCF of the planning model, as a string."""
+        raise NotImplementedError
+
+    @classmethod
+    def plant_xml(cls) -> str:
+        """The MJCF a MuJoCo plant integrates: the planning model unless the
+        task names a finer one (the JAX task's ``sim_model``)."""
+        return cls.model_xml()
 
     @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
@@ -196,6 +218,16 @@ class Task(Generic[ConfigT]):
 
     def post_rollout(self, states, sensors, controls, system_metadata=None) -> None:
         """Host hook after a solve (does nothing by default)."""
+
+    def pre_sim_step(self) -> None:
+        """Plant hook before each plant step (does nothing by default)."""
+
+    def post_sim_step(self) -> None:
+        """Plant hook after each plant step (does nothing by default)."""
+
+    def get_sim_metadata(self) -> dict[str, Any]:
+        """Plant -> controller metadata, sent with every state message."""
+        return {}
 
     def optimizer_warm_start(self) -> np.ndarray:
         return np.zeros(self.nu)

@@ -4,8 +4,10 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
+import torch
 
 from judo_tpu_torch.gui import slider
 from judo_tpu_torch.tasks.leap_cube import LeapCube, LeapCubeConfig
@@ -35,3 +37,7 @@ class CaltechLeapCube(LeapCube):
     config_t: type[CaltechLeapCubeConfig] = CaltechLeapCubeConfig
     qpos_home_default: np.ndarray = QPOS_HOME
     goal_position: tuple = (0.11, 0.005, 0.03)
+
+    def __init__(self, device: Any = "cuda", dtype: torch.dtype = torch.float32, seed: int | None = None) -> None:
+        super().__init__(device=device, dtype=dtype, seed=seed)
+        self.reset()  # the JAX variant resets once more after LeapCube's constructor: its first goal is discarded

@@ -73,8 +73,12 @@ class Cartpole(Task[CartpoleConfig]):
         self.reset()
 
     @classmethod
+    def model_xml(cls) -> str:
+        return CARTPOLE_XML
+
+    @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
-        return model_from_mujoco(CARTPOLE_XML, cls.planning_solver_iterations)
+        return model_from_mujoco(cls.model_xml(), cls.planning_solver_iterations)
 
     def reward(self, states, sensors, controls, params, system_metadata=None) -> torch.Tensor:
         """Pole-vertical and cart-centered (smooth L1), quadratic velocity and

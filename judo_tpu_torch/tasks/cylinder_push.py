@@ -88,8 +88,12 @@ class CylinderPush(Task[CylinderPushConfig]):
         self.reset()
 
     @classmethod
+    def model_xml(cls) -> str:
+        return CYLINDER_PUSH_XML
+
+    @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
-        return model_from_mujoco(CYLINDER_PUSH_XML, cls.planning_solver_iterations)
+        return model_from_mujoco(cls.model_xml(), cls.planning_solver_iterations)
 
     def reward(self, states, sensors, controls, params, system_metadata=None) -> torch.Tensor:
         """Pusher behind the cart, pusher velocity, cart to goal."""

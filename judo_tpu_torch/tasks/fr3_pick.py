@@ -118,10 +118,14 @@ class FR3Pick(Task[FR3PickConfig]):
         self.reset()
 
     @classmethod
+    def model_xml(cls) -> str:
+        return build_fr3_pick_xml()
+
+    @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
         import mujoco
 
-        xml = build_fr3_pick_xml()
+        xml = cls.model_xml()
         m, extras = model_from_mujoco(xml, cls.planning_solver_iterations)
         mj = mujoco.MjModel.from_xml_string(xml)
         extras.update({f"qpos_adr_{n}": np.int64(mj.jnt_qposadr[mj.joint(n).id]) for n in JOINTS})

@@ -77,11 +77,15 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
         self.reset()
 
     @classmethod
+    def model_xml(cls) -> str:
+        return spot_xml(cls.name)
+
+    @classmethod
     def _model_from_mujoco(cls) -> tuple[PhysicsModel, dict]:
         import mujoco
 
-        m, extras = model_from_mujoco(spot_xml(cls.name), cls.planning_solver_iterations, _spot_planner_pairs)
-        mj = mujoco.MjModel.from_xml_string(spot_xml(cls.name))
+        m, extras = model_from_mujoco(cls.model_xml(), cls.planning_solver_iterations, _spot_planner_pairs)
+        mj = mujoco.MjModel.from_xml_string(cls.model_xml())
         extras["body_pose_idx"] = np.int64(mj.jnt_qposadr[mj.joint("base").id])
         if cls.object_joint is not None:
             joint = mj.joint(cls.object_joint).id
