@@ -7,9 +7,9 @@ Topics:
     CLI        --task, optimizer, sim_pause, controller_pause, task_reset--> both
 
 Both nodes build their tasks on ``device``: the card unless the caller asks
-for the CPU. Each keeps counts for telemetry: the plant's ticks,
-their host times and the ticks that overran the plant's timestep; the
-controller's plans and their host times.
+for the CPU. Each keeps counts for telemetry: the plant's ticks, their
+host times, the ticks that overran the plant's timestep and the wall time
+of its loop; the controller's plans and their host times.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ class SimulationNode:
         self._lock = threading.Lock()
         self.ticks = 0
         self.overruns = 0
+        self.wall_seconds = 0.0  # wall time of spin()
         self.nonfinite_states = 0
         self.tick_times: collections.deque = collections.deque(maxlen=TIMES_KEPT)
         bus.subscribe("task", self._on_task)
@@ -99,6 +100,13 @@ class SimulationNode:
             self.bus.publish("states", state)
 
     def spin(self) -> None:
+        """Tick at the plant's timestep against the wall clock: each tick is
+        due one timestep after the one before was due, so neither a tick's
+        own time nor a late wake-up lengthens the period. A loop more than a
+        timestep behind resumes its schedule from now instead of catching
+        up in a burst; ``wall_seconds`` over the timestep is the ticks the
+        wall clock called for."""
+        t_start = due = time.perf_counter()
         while not self._stop.is_set():
             t0 = time.perf_counter()
             self.step_once()
@@ -108,8 +116,13 @@ class SimulationNode:
             if elapsed > budget:
                 self.overruns += 1
                 warnings.warn(f"sim step overran: {elapsed * 1e3:.1f}ms > {budget * 1e3:.1f}ms", stacklevel=1)
-            else:
-                time.sleep(budget - elapsed)
+            due += budget
+            delay = due - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            elif delay < -budget:
+                due = time.perf_counter()
+            self.wall_seconds = time.perf_counter() - t_start
 
     def stop(self) -> None:
         self._stop.set()

@@ -75,6 +75,7 @@ class LoopReport:
     rollouts: int
     seconds: float  # wall time of the paced loops
     ticks: int  # plant steps taken
+    ticks_due: int  # plant steps the wall time of its loop called for (its seconds / the timestep)
     plans: int  # update_action calls in the paced loop
     warmup_plans: int  # update_action calls before it
     overruns: int  # ticks longer than the plant's timestep
@@ -88,8 +89,9 @@ class LoopReport:
 
         return (
             f"loop {self.task} + {self.optimizer} ({self.rollouts} rollouts) on {self.device}, {self.sim_backend} "
-            f"plant: {self.seconds:.2f} s, {self.plans} plans ({pct(self.plan_ms)}), {self.ticks} ticks "
-            f"({pct(self.tick_ms)}), {self.overruns} overruns, {self.nonfinite_states} non-finite states"
+            f"plant: {self.seconds:.2f} s, {self.plans} plans ({pct(self.plan_ms)}), {self.ticks} ticks of "
+            f"{self.ticks_due} due ({pct(self.tick_ms)}), {self.overruns} overruns, "
+            f"{self.nonfinite_states} non-finite states"
         )
 
 
@@ -143,7 +145,8 @@ def _cmd_run(args: argparse.Namespace) -> LoopReport:
         report = LoopReport(
             task=ctrl_node.controller.task.name, optimizer=args.optimizer, sim_backend=args.sim_backend,
             device=str(args.device), rollouts=ctrl_node.controller.optimizer_cfg.num_rollouts,
-            seconds=time.perf_counter() - t_start, ticks=sim_node.ticks, plans=ctrl_node.plans, warmup_plans=1,
+            seconds=time.perf_counter() - t_start, ticks=sim_node.ticks,
+            ticks_due=int(sim_node.wall_seconds / sim_node.sim.timestep), plans=ctrl_node.plans, warmup_plans=1,
             overruns=sim_node.overruns, nonfinite_states=sim_node.nonfinite_states,
             tick_ms=1e3 * np.asarray(sim_node.tick_times), plan_ms=1e3 * np.asarray(ctrl_node.plan_times),
         )
@@ -182,7 +185,6 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--config", default="", help="YAML launch config (see judo_tpu_torch/examples/example.yaml)")
     run.add_argument("--seconds", type=float, default=10.0, help="<=0 runs until Ctrl+C")
     run.add_argument("--gui", action="store_true", help="serve the browser GUI (not ported yet)")
-    run.add_argument("--gui-port", type=int, default=8008)
     run.set_defaults(func=_cmd_run)
 
     bench = sub.add_parser("benchmark", help="plan-time distribution per task/optimizer pair")

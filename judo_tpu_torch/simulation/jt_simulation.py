@@ -28,16 +28,12 @@ from judo_tpu_torch.tasks import Task
 
 class JTSimulation(Simulation):
     def __init__(self, task: Task) -> None:
+        _refuse_policy_task(task)
         super().__init__(task)
         self._bind_task()
 
     def _bind_task(self) -> None:
         task = self.task
-        if task.uses_locomotion_policy:
-            raise ValueError(
-                f"task {task.name!r} commands a locomotion policy, not its actuators; the judo_tpu plant steps "
-                "actuator controls only: use the 'mujoco_policy' backend"
-            )
         pm = self.pm = task.planning_model
         self._kin_model = pm.astype(np.float64)
         nq, nv, nu_ = pm.nq, pm.nv, max(pm.nu, 1)
@@ -55,6 +51,7 @@ class JTSimulation(Simulation):
         self._load_task_state()
 
     def set_task_instance(self, task: Task) -> None:
+        _refuse_policy_task(task)  # before the switch: a refused task leaves the plant on its old one
         super().set_task_instance(task)
         self._bind_task()
 
@@ -104,30 +101,20 @@ class JTSimulation(Simulation):
         task.qpos, task.qvel, task.time = self._qpos.copy(), self._qvel.copy(), self._time
         task.post_sim_step()
 
-    def body_frames(self, qpos: np.ndarray, mocap_pos: np.ndarray, mocap_quat: np.ndarray):
-        """(xpos (nbody, 3), xquat (nbody, 4)) at ``qpos``: the port's own
-        kinematics on the CPU in float64, the mocap bodies at the given
-        mocap pose (what ``mj_forward`` fills)."""
-        kin = kinematics_l(self._kin_model, torch.as_tensor(np.asarray(qpos, np.float64)).reshape(-1, 1))
-        xpos, xquat = kin.xpos[:, :, 0].numpy().copy(), kin.xquat[:, :, 0].numpy().copy()
-        ids = self.task.mocap_body_ids
-        if len(ids):
-            xpos[ids] = mocap_pos
-            xquat[ids] = mocap_quat / np.linalg.norm(mocap_quat, axis=-1, keepdims=True)
-        return xpos, xquat
-
     @property
     def timestep(self) -> float:
         return float(self.task.extras["timestep"])
 
     @property
     def sim_state(self) -> MujocoState:
-        """The task's state; its body frames are computed when first read."""
+        """The task's state; its body frames are computed when first read,
+        from the model and mocap bodies of the task that published it."""
         task = self.task
         qpos = np.asarray(task.qpos, np.float64).copy()
         mocap_pos, mocap_quat = task.mocap_pos.copy(), task.mocap_quat.copy()
+        model, mocap_ids = self._kin_model, task.mocap_body_ids.copy()
         return _DeferredFrames(
-            lambda: self.body_frames(qpos, mocap_pos, mocap_quat),
+            lambda: body_frames(model, mocap_ids, qpos, mocap_pos, mocap_quat),
             time=float(task.time),
             qpos=qpos,
             qvel=np.asarray(task.qvel, np.float64).copy(),
@@ -135,6 +122,26 @@ class JTSimulation(Simulation):
             mocap_quat=mocap_quat,
             sim_metadata=task.get_sim_metadata(),
         )
+
+
+def _refuse_policy_task(task: Task) -> None:
+    if task.uses_locomotion_policy:
+        raise ValueError(
+            f"task {task.name!r} commands a locomotion policy, not its actuators; the judo_tpu plant steps "
+            "actuator controls only: use the 'mujoco_policy' backend"
+        )
+
+
+def body_frames(model, mocap_ids: np.ndarray, qpos: np.ndarray, mocap_pos: np.ndarray, mocap_quat: np.ndarray):
+    """(xpos (nbody, 3), xquat (nbody, 4)) of ``model`` (float64) at
+    ``qpos``: the port's own kinematics on the CPU, the mocap bodies
+    ``mocap_ids`` at the given mocap pose (what ``mj_forward`` fills)."""
+    kin = kinematics_l(model, torch.as_tensor(np.asarray(qpos, np.float64)).reshape(-1, 1))
+    xpos, xquat = kin.xpos[:, :, 0].numpy().copy(), kin.xquat[:, :, 0].numpy().copy()
+    if len(mocap_ids):
+        xpos[mocap_ids] = mocap_pos
+        xquat[mocap_ids] = mocap_quat / np.linalg.norm(mocap_quat, axis=-1, keepdims=True)
+    return xpos, xquat
 
 
 class _DeferredFrames(MujocoState):

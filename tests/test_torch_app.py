@@ -123,6 +123,55 @@ def test_pause_resume_and_reset():
     assert task.time == 0.0
 
 
+class _FakeClock:
+    """``time.perf_counter`` and ``time.sleep`` for the plant loop: sleeping
+    wakes ``late`` seconds after it was asked to."""
+
+    def __init__(self, late: float) -> None:
+        self.t, self.late = 0.0, late
+
+    def perf_counter(self) -> float:
+        return self.t
+
+    def sleep(self, seconds: float) -> None:
+        self.t += seconds + self.late
+
+
+@pytest.mark.parametrize(
+    "stall, behind",
+    [(None, 0), (3.5, 2)],  # a tick of 3.5 timesteps puts the loop 2.5 behind: it resumes, no burst
+)
+def test_plant_loop_keeps_pace_with_the_wall_clock(monkeypatch, stall, behind):
+    """The plant's loop against a clock whose sleeps wake late by 5 % of a
+    timestep, with every tenth tick overrunning by 30 %: ticks stay with the
+    ticks the wall clock called for (exactly, in whole ticks), overruns are
+    counted, and a stall is not caught up in a burst."""
+    from judo_tpu_torch.app import nodes
+
+    node = SimulationNode(MessageBus(), "cartpole", backend="judo_tpu", device="cpu")
+    dt = node.sim.timestep
+    clock = _FakeClock(late=0.05 * dt)
+    monkeypatch.setattr(nodes, "time", clock)
+    durations = [(1.3 if k % 10 == 9 else 0.3) * dt for k in range(200)]
+    if stall is not None:
+        durations[105] = stall * dt
+    starts = []
+
+    def fake_tick():
+        starts.append(clock.t)
+        clock.t += durations[node.ticks]
+        node.ticks += 1
+        if node.ticks == len(durations):
+            node.stop()
+
+    monkeypatch.setattr(node, "step_once", fake_tick)
+    node.spin()
+    due = int(node.wall_seconds / dt)
+    assert node.ticks == 200 and due - node.ticks == behind
+    assert node.overruns == 20 + (stall is not None)
+    assert min(np.diff(starts)) >= 0.3 * dt  # no tick started before the one before it ended
+
+
 def test_benchmark_harness_runs_and_formats():
     np.random.seed(0)
     results = run_benchmark(tasks=["cartpole"], optimizers=["ps", "mppi"], num_samples=4, warmup=1,

@@ -103,6 +103,38 @@ def test_jt_simulation_body_frames_match_mj_forward(name):
         np.testing.assert_array_equal(state.sim_metadata["goal_quat"], ours.goal_quat)
 
 
+def test_jt_simulation_frames_of_a_message_outlive_a_task_switch():
+    """A state message published before a task switch and read after it
+    still gives its own task's body frames (1e-10 against mj_forward)."""
+    leap = get_registered_tasks()["leap_cube"][0](device="cpu", dtype=torch.float64, seed=3)
+    sim = JTSimulation(leap)
+    sim.step(leap.reset_command)
+    state = sim.sim_state  # frames not read yet
+    sim.set_task_instance(get_registered_tasks()["cartpole"][0](device="cpu", dtype=torch.float64))
+    sim.step(np.zeros(1))
+    mj = mujoco.MjModel.from_xml_string(leap.model_xml())
+    d = mujoco.MjData(mj)
+    d.qpos[:] = state.qpos
+    d.mocap_pos[:], d.mocap_quat[:] = state.mocap_pos, state.mocap_quat
+    mujoco.mj_forward(mj, d)
+    np.testing.assert_allclose(state.xpos, d.xpos, atol=1e-10, rtol=0)
+    np.testing.assert_allclose(state.xquat, d.xquat, atol=1e-10, rtol=0)
+
+
+def test_jt_simulation_refused_switch_keeps_the_old_task():
+    """Switching the judo_tpu plant to a Spot task raises, naming
+    mujoco_policy, and leaves the plant stepping its old task."""
+    cartpole = get_registered_tasks()["cartpole"][0](device="cpu", dtype=torch.float64)
+    sim = JTSimulation(cartpole)
+    spot = get_registered_tasks()["spot_navigate"][0](device="cpu", dtype=torch.float64)
+    with pytest.raises(ValueError, match="mujoco_policy"):
+        sim.set_task_instance(spot)
+    assert sim.task is cartpole
+    q0 = cartpole.qpos.copy()
+    sim.step(np.array([0.5]))
+    assert not np.array_equal(cartpole.qpos, q0) and cartpole.time == pytest.approx(sim.timestep)
+
+
 def test_mj_simulation_matches_jax_on_leap_sim_plant():
     ours, ref = _tasks("leap_cube")
     sim, jsim = MJSimulation(ours), JaxMJSimulation(ref)
