@@ -71,6 +71,25 @@ without the final line):
      called for;
    - the harness: run_benchmark on leap_cube and cylinder_push with mppi and
      ps, the judo_tpu plant, 20 plans each, printed by format_table;
+   - the GUI loop: cli.main(["run", ..., "--gui", "--gui-port", <a free
+     port>]) for 8 s on leap_cube + mppi (320 rollouts) with the judo_tpu
+     plant, and a websocket client (judo_tpu_torch/visualizers/websocket.py)
+     in a process of its own, as a browser would be: the hello has leap's 21
+     bodies; state messages arrive at 20 Hz or more, with finite poses that
+     move and traces of shape (495, 2, 3); a "set" of MPPI's temperature is
+     published as optimizer_config; "reset" reaches the plant; at 5 s a
+     switch to cylinder_push brings a hello with its 4 bodies and plans go
+     on; K3 launches equal the ticks and K1 launches the plans, the warm-up
+     and the switch's first solve; the run ends with "shutdown complete".
+     Printed: plan and tick percentiles, ticks against ticks due (the pace,
+     not a check), overruns, states per second, the state message's build
+     and encode time on the host, the hello's size, the switch's latency;
+   - the profile: judo_tpu_torch.utils.profiling.trace around 5 leap_cube +
+     mppi solves at depth 0, 20 calls at depth 2 and 10 cylinder_push + ps
+     solves, each update_action inside annotate("update_action"); K1's
+     kernel events in the Chrome trace must equal its launch counter, and
+     per segment the card's busy share (the union of its kernel and copy
+     intervals over the segment's window) and idle share are printed;
 5. one float64 solve per path, cuda against cpu with shared noise (leap and
    spot with MPPI, cylinder_push with PS, fr3_pick with CEM, spot_box_push
    with MPPI, whose float64 kernel runs with J in global memory);
@@ -84,6 +103,9 @@ without the final line):
    solver iterations), the shape of its row in the kernels line, and at 320
    rollouts.
 The last line is {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --gui-client PORT SWITCH_AT`` is the GUI loop's
+client, which the GUI phase starts itself.
 """
 
 from __future__ import annotations
@@ -130,6 +152,19 @@ PLANT_TICKS, LOOP_SECONDS, HARNESS_SAMPLES = 20, 5, 20
 # those its wall time called for. Printed as met or not, not a check: host
 # timing on a shared machine is not a property of the kernels.
 PACE_LIMIT = 0.99
+# The GUI phase: the loop's length, when its client switches the task, the
+# temperature it sets, the least rate of state messages (of the server's 30
+# per second) and the shape of leap's traces in each: 1 elite (leap_cube's
+# controller override sets max_num_traces 1) x 5 trace sensors x 99
+# segments, each a pair of points.
+GUI_SECONDS, GUI_SWITCH_AT, GUI_TEMPERATURE, GUI_MIN_HZ = 8, 5.0, 0.1234, 20.0
+LEAP_TRACES = [495, 2, 3]
+# The profile phase: (label, task, optimizer, rollouts, pipeline_depth, calls)
+# per segment, and where its Chrome trace goes.
+PROFILE_SEGMENTS = (("leap_cube mppi depth 0", "leap_cube", "mppi", B_MAIN, 0, 5),
+                    ("leap_cube mppi depth 2", "leap_cube", "mppi", B_MAIN, 2, 20),
+                    ("cylinder_push ps depth 0", "cylinder_push", "ps", 32, 0, 10))
+PROFILE_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_profile"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -737,6 +772,214 @@ def harness() -> str:
     return format_table(results)
 
 
+def _websocket_module():
+    """``judo_tpu_torch/visualizers/websocket.py`` loaded by its path, without
+    the package (and so without torch): the GUI client's process stays light."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "judo_tpu_torch" / "visualizers" / "websocket.py"
+    spec = importlib.util.spec_from_file_location("gui_websocket", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gui_client(port: int, switch_at: float) -> int:
+    """The GUI phase's browser: a process of its own that connects to the GUI
+    server on ``port``, reads every message until the server closes, sets the
+    MPPI temperature after 1 s, presses reset after 2 s and switches to
+    cylinder_push after ``switch_at`` s; prints what it saw as one JSON line."""
+    import socket
+
+    ws = _websocket_module()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    sock.settimeout(60)
+    conn = ws.client_handshake(sock, f"127.0.0.1:{port}")
+    t0 = time.perf_counter()
+    raw = conn.recv_message()
+    hello = json.loads(raw)
+    out = {"hello_task": hello["task"], "hello_bodies": len(hello["scene"]["bodies"]), "hello_bytes": len(raw.encode()),
+           "states": [], "errors": [], "new_hello": None, "t_task": None}
+    first = last = None
+    sent = set()
+    while True:
+        try:
+            raw = conn.recv_message()
+        except (ConnectionError, OSError):
+            break
+        if raw is None:
+            break
+        t = time.perf_counter() - t0
+        msg = json.loads(raw)
+        if msg["type"] == "state":
+            poses = np.asarray(msg["bodies"], np.float64)
+            shape = None if msg["traces"] is None else list(np.asarray(msg["traces"]).shape)
+            out["states"].append([t, poses.shape[0], bool(np.isfinite(poses).all()), shape, msg["num_elite"],
+                                  msg["plan_time_ms"]])
+            if poses.shape[0] == out["hello_bodies"] and out["t_task"] is None:  # leap's, before the switch
+                first = poses if first is None else first
+                last = poses
+        elif msg["type"] == "hello":
+            out["new_hello"] = {"t": t, "task": msg["task"], "bodies": len(msg["scene"]["bodies"])}
+        elif msg["type"] == "error":
+            out["errors"].append(msg["message"])
+        for name, at, action in (("set", 1.0, {"type": "set", "group": "optimizer", "path": ["temperature"],
+                                               "value": GUI_TEMPERATURE}),
+                                 ("reset", 2.0, {"type": "reset"}),
+                                 ("task", switch_at, {"type": "task", "name": "cylinder_push"})):
+            if t >= at and name not in sent:
+                conn.send_text(json.dumps(action))
+                sent.add(name)
+                out[f"t_{name}"] = t
+    out["poses_moved"] = None if first is None else float(np.abs(last - first).max())
+    print(json.dumps(out))
+    return 0
+
+
+def gui_loop() -> dict:
+    """``cli.main(["run", ..., "--gui", ...])`` for leap_cube + mppi with the
+    judo_tpu plant on a thread of this process, and ``gui_client`` in a
+    process of its own; -> the loop's report, the launch counts of the run,
+    the server's state-message times and what the client and the plant saw."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    from judo_tpu_torch import cli
+    from judo_tpu_torch.app import nodes
+    from judo_tpu_torch.visualizers import server as gui_server
+
+    with socket.socket() as sock:
+        sock.bind(("0.0.0.0", 0))
+        port = sock.getsockname()[1]
+    started, temperatures, resets = [], [], []
+
+    class Recorded(gui_server.GuiServer):
+        def start(self) -> None:
+            self.bus.subscribe("optimizer_config", lambda cfg: temperatures.append(cfg.temperature))
+            super().start()
+            started.append(self)
+
+    def recorded_reset(node, msg) -> None:
+        resets.append(node.sim.task.name)
+        real_reset(node, msg)
+
+    real_server, real_reset = gui_server.GuiServer, nodes.SimulationNode._on_reset
+    gui_server.GuiServer, nodes.SimulationNode._on_reset = Recorded, recorded_reset
+    buf, result, client = io.StringIO(), {}, None
+
+    def run() -> None:
+        try:
+            with contextlib.redirect_stdout(buf):
+                result["report"] = cli.main(["run", "--task", "leap_cube", "--optimizer", "mppi", "--sim-backend",
+                                             "judo_tpu", "--gui", "--gui-port", str(port), "--seconds",
+                                             str(GUI_SECONDS)])
+        except BaseException as e:  # noqa: BLE001 — handed to the main thread, which raises it
+            result["error"] = e
+
+    reset_counts()
+    thread = threading.Thread(target=run)
+    try:
+        thread.start()
+        deadline = time.time() + 600
+        while not started and thread.is_alive() and time.time() < deadline:
+            time.sleep(0.05)
+        if started:
+            client = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gui-client", str(port),
+                                       str(GUI_SWITCH_AT)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        thread.join(timeout=GUI_SECONDS + 600)
+    finally:
+        gui_server.GuiServer, nodes.SimulationNode._on_reset = real_server, real_reset
+        if client is not None:
+            try:
+                cout, cerr = client.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                client.kill()
+                cout, cerr = client.communicate()
+    counts = read_counts()
+    if "error" in result:
+        raise RuntimeError(f"GUI loop failed: {result['error']!r}") from result["error"]
+    if thread.is_alive() or not started or client is None:
+        raise RuntimeError(f"GUI loop: thread alive {thread.is_alive()}, server started {bool(started)}")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"  {line}")
+    if client.returncode != 0:
+        raise RuntimeError(f"GUI client exited {client.returncode}: {cerr[-2000:]}")
+    return {"report": result["report"], "counts": counts, "ended": bool(lines) and lines[-1] == "shutdown complete",
+            "gui_line": f"GUI: http://localhost:{port}" in lines, "client": json.loads(cout.strip().splitlines()[-1]),
+            "state_ms": 1e3 * np.asarray(started[0].state_times), "temperatures": temperatures, "resets": resets}
+
+
+def _union_ms(intervals, lo: float, hi: float) -> float:
+    """Length in ms of the union of (start, end) µs intervals clipped to [lo, hi]."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s_, e_ in sorted((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi):
+        if cur_e is None or s_ > cur_e:
+            total += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    total += 0.0 if cur_e is None else cur_e - cur_s
+    return total / 1e3
+
+
+def profile_phase() -> dict:
+    """``utils.profiling.trace`` around the PROFILE_SEGMENTS solves, each
+    ``update_action`` inside ``annotate("update_action")`` and each segment
+    inside an ``annotate`` of its label (a depth-2 segment ends with
+    ``flush_pipeline``, so its window holds its last solves). From the Chrome
+    trace: K1's kernel events against its launch counter, and per segment the
+    card's busy share, the union of its kernel and copy intervals over the
+    segment's window."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+    from judo_tpu_torch.tasks.leap_cube import QPOS_REST
+    from judo_tpu_torch.utils.profiling import annotate, trace
+
+    controllers = []
+    for label, task, opt, R, depth, calls in PROFILE_SEGMENTS:
+        c = make_controller(task, opt, device="cuda", dtype=torch.float32, seed=0)
+        c.optimizer_cfg.num_rollouts = R
+        c.controller_cfg.pipeline_depth = depth
+        rest = QPOS_REST if task == "leap_cube" else CYLINDER_PUSH_CONTACT
+        c.current_state = np.concatenate([rest, np.zeros(c.pm.nv)])
+        c.update_action()  # the first solve: kernels loaded, caches filled
+        c.flush_pipeline()
+        controllers.append(c)
+    torch.cuda.synchronize()
+    reset_counts()
+    with trace(PROFILE_DIR) as prof:
+        for (label, _, _, _, _, calls), c in zip(PROFILE_SEGMENTS, controllers):
+            with annotate(label):
+                for _ in range(calls):
+                    with annotate("update_action"):
+                        c.update_action()
+                c.flush_pipeline()
+                torch.cuda.synchronize()
+    counts = read_counts()
+    events = [e for e in json.loads(prof.trace_path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "fused_rollout_kernel" in e["name"]]
+    regions = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    segments = []
+    for label, *_, calls in PROFILE_SEGMENTS:
+        r = regions[label]
+        lo, hi = r["ts"], r["ts"] + r["dur"]
+        busy = _union_ms(device, lo, hi)
+        seg_k1 = [e for e in k1 if lo <= e["ts"] < hi]
+        segments.append({"label": label, "calls": calls, "window_ms": (hi - lo) / 1e3, "busy_ms": busy,
+                         "busy": busy / ((hi - lo) / 1e3), "k1_events": len(seg_k1),
+                         "k1_ms": sum(e["dur"] for e in seg_k1) / 1e3,
+                         "kernel_events": sum(1 for e in kernels if lo <= e["ts"] < hi)})
+    n_regions = sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == "update_action")
+    return {"counts": counts, "k1_events": len(k1), "kernel_events": len(kernels), "segments": segments,
+            "update_action_regions": n_regions, "trace": str(prof.trace_path)}
+
+
 def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> float:
     """One float64 solve with shared noise: cuda vs cpu, largest error of rewards and knots."""
     import torch
@@ -1070,6 +1313,67 @@ def main() -> int:
     for line in harness().splitlines():
         print(f"  {line}", flush=True)
 
+    gui = gui_loop()
+    rep, counts, cl = gui["report"], gui["counts"], gui["client"]
+    states, t_task = cl["states"], cl["t_task"] or float("inf")
+    leap_states = [st for st in states if st[0] < t_task and st[1] == cl["hello_bodies"]]
+    after = [st for st in states if cl["new_hello"] is not None and st[0] > cl["new_hello"]["t"]]
+    span = leap_states[-1][0] - leap_states[0][0] if len(leap_states) > 1 else 0.0
+    rate = (len(leap_states) - 1) / span if span > 0 else 0.0
+    leap_traces = [st[3] for st in leap_states if st[3] is not None]
+    plans_after = len({st[5] for st in after if st[1] == 4 and st[5] is not None})
+    switch_ms = 1e3 * (cl["new_hello"]["t"] - t_task) if cl["new_hello"] is not None else float("nan")
+    no_gui = loops["leap_cube"]["report"]
+    # K3 once per tick; K1 once per plan, once to warm up and once for the switch's first solve
+    checks = {
+        "hello has leap_cube's 21 bodies": cl["hello_task"] == "leap_cube" and cl["hello_bodies"] == 21,
+        f"state messages at >= {GUI_MIN_HZ:g} Hz": rate >= GUI_MIN_HZ,
+        "every body pose finite": all(st[2] for st in states),
+        "body poses moved": (cl["poses_moved"] or 0.0) > 1e-6,
+        f"leap traces {LEAP_TRACES}": bool(leap_traces) and all(tr == LEAP_TRACES for tr in leap_traces),
+        "every num_elite 0": all(st[4] == 0 for st in states),
+        "temperature set and optimizer_config published": GUI_TEMPERATURE in gui["temperatures"],
+        "task_reset reached the plant": "leap_cube" in gui["resets"],
+        "new hello with cylinder_push's 4 bodies": cl["new_hello"] is not None and cl["new_hello"]["task"]
+        == "cylinder_push" and cl["new_hello"]["bodies"] == 4,
+        "plans after the switch": rep.task == "cylinder_push" and plans_after >= 5,
+        "no error frame": not cl["errors"],
+        "K3 launches = ticks": counts["physics_step"] == rep.ticks > 0,
+        "K1 launches = plans + warm-up + switch": counts["fused_rollout"] == rep.plans + rep.warmup_plans + 1,
+        "no non-finite state": rep.nonfinite_states == 0,
+        "GUI address printed": gui["gui_line"],
+        "ends with 'shutdown complete'": gui["ended"],
+    }
+    good = all(checks.values())
+    ok &= good
+    print(f"gui loop leap_cube + mppi R={B_MAIN} -> cylinder_push at {GUI_SWITCH_AT:g} s (judo_tpu plant, --gui, "
+          f"{GUI_SECONDS} s): {rep.plans} plans ({pcts(rep.plan_ms)}); {rep.ticks} ticks of {rep.ticks_due} due "
+          f"({100 * rep.ticks / max(rep.ticks_due, 1):.1f} %; pace limit {PACE_LIMIT:.0%}: "
+          f"{'met' if rep.ticks >= PACE_LIMIT * rep.ticks_due else 'not met'}) ({pcts(rep.tick_ms)}), "
+          f"{rep.overruns} overruns; {rate:.2f} leap states/s received ({len(leap_states)} before the switch, "
+          f"{len(after)} after); state message build + encode {pcts(gui['state_ms'])} over {gui['state_ms'].size} "
+          f"messages; hello {cl['hello_bytes']} B; task to new hello {switch_ms:.1f} ms; {plans_after} plans seen "
+          f"after the switch; physics_step launches {counts['physics_step']} (ticks {rep.ticks}), fused_rollout "
+          f"launches {counts['fused_rollout']} (plans {rep.plans} + 1 warm-up + 1 switch); the no-GUI leap loop's "
+          f"plan p50 {np.percentile(no_gui.plan_ms, 50):.3f} ms in this run on {card}", flush=True)
+    for name, value in checks.items():
+        print(f"  gui check {name}: {'ok' if value else 'FAIL'}", flush=True)
+
+    prof = profile_phase()
+    good = (prof["kernel_events"] > 0 and prof["k1_events"] == prof["counts"]["fused_rollout"]
+            == sum(seg["calls"] for seg in prof["segments"])
+            and all(seg["k1_events"] == seg["calls"] for seg in prof["segments"])
+            and prof["update_action_regions"] == sum(seg["calls"] for seg in prof["segments"]))
+    ok &= good
+    print(f"profile (torch.profiler, {prof['trace']}): {prof['kernel_events']} kernel events, K1 events "
+          f"{prof['k1_events']} against the launch counter {prof['counts']['fused_rollout']}, "
+          f"{prof['update_action_regions']} update_action regions: {'ok' if good else 'FAIL'} on {card}", flush=True)
+    for seg in prof["segments"]:
+        print(f"  profile {seg['label']}, {seg['calls']} calls: window {seg['window_ms']:.3f} ms, device busy "
+              f"{seg['busy_ms']:.3f} ms, busy share {seg['busy']:.4f}, idle share {1 - seg['busy']:.4f}; K1 "
+              f"{seg['k1_events']} events, {seg['k1_ms']:.3f} ms; {seg['kernel_events']} kernel events on {card}",
+              flush=True)
+
     for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
                                             ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032),
                                             ("spot_box_push", "mppi", 4, 0.4)):
@@ -1103,6 +1407,8 @@ def main() -> int:
                 "physics_step": step["counts"]["physics_step"] + sum(p["counts"]["physics_step"]
                                                                       for p in (*plant.values(), *loops.values()))}
     launches["fused_rollout"] += sum(lp["counts"]["fused_rollout"] for lp in loops.values())
+    launches["fused_rollout"] += gui["counts"]["fused_rollout"] + prof["counts"]["fused_rollout"]
+    launches["physics_step"] += gui["counts"]["physics_step"]
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
          max(e["states"] for k, e in errs.items() if k[0] == "fused_rollout" and k[1] == "f32")),
@@ -1125,4 +1431,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gui-client"]:
+        sys.exit(gui_client(int(sys.argv[2]), float(sys.argv[3])))
     sys.exit(main())

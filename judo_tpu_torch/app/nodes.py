@@ -8,8 +8,9 @@ Topics:
 
 Both nodes build their tasks on ``device``: the card unless the caller asks
 for the CPU. Each keeps counts for telemetry: the plant's ticks, their
-host times, the ticks that overran the plant's timestep and the wall time
-of its loop; the controller's plans and their host times.
+host times, the ticks that overran the plant's timestep, the wall time of
+its loop and the ticks that wall time called for; the controller's plans and
+their host times.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class SimulationNode:
         self.ticks = 0
         self.overruns = 0
         self.wall_seconds = 0.0  # wall time of spin()
+        self.ticks_due = 0  # ticks the wall time of spin() called for, at the timestep of each stretch of it
         self.nonfinite_states = 0
         self.tick_times: collections.deque = collections.deque(maxlen=TIMES_KEPT)
         bus.subscribe("task", self._on_task)
@@ -59,12 +61,12 @@ class SimulationNode:
         bus.subscribe("task_reset", self._on_reset)
 
     def _on_task(self, name: str) -> None:
+        entry = get_registered_tasks().get(name)
+        if entry is None:
+            warnings.warn(f"unknown task '{name}'", stacklevel=1)
+            return
+        task = entry[0](device=self.device)  # built outside the lock: the plant ticks on meanwhile
         with self._lock:
-            entry = get_registered_tasks().get(name)
-            if entry is None:
-                warnings.warn(f"unknown task '{name}'", stacklevel=1)
-                return
-            task = entry[0](device=self.device)
             if (
                 self._requested_backend == "mujoco"
                 and task.uses_locomotion_policy
@@ -104,15 +106,20 @@ class SimulationNode:
         due one timestep after the one before was due, so neither a tick's
         own time nor a late wake-up lengthens the period. A loop more than a
         timestep behind resumes its schedule from now instead of catching
-        up in a burst; ``wall_seconds`` over the timestep is the ticks the
-        wall clock called for."""
-        t_start = due = time.perf_counter()
+        up in a burst. ``ticks_due`` counts the ticks the wall clock called
+        for stretch by stretch: a task switch that changes the timestep
+        starts a new stretch at the tick where the loop first sees it."""
+        t_start = due = seg_start = time.perf_counter()
+        seg_dt, due_before = self.sim.timestep, 0.0
         while not self._stop.is_set():
             t0 = time.perf_counter()
             self.step_once()
             elapsed = time.perf_counter() - t0
             self.tick_times.append(elapsed)
             budget = self.sim.timestep
+            if budget != seg_dt:
+                due_before += (t0 - seg_start) / seg_dt
+                seg_start, seg_dt = t0, budget
             if elapsed > budget:
                 self.overruns += 1
                 warnings.warn(f"sim step overran: {elapsed * 1e3:.1f}ms > {budget * 1e3:.1f}ms", stacklevel=1)
@@ -122,7 +129,9 @@ class SimulationNode:
                 time.sleep(delay)
             elif delay < -budget:
                 due = time.perf_counter()
-            self.wall_seconds = time.perf_counter() - t_start
+            now = time.perf_counter()
+            self.wall_seconds = now - t_start
+            self.ticks_due = int(due_before + (now - seg_start) / seg_dt)
 
     def stop(self) -> None:
         self._stop.set()

@@ -6,13 +6,16 @@ One process hosts the plant and controller threads:
     python -m judo_tpu_torch.cli run --config judo_tpu_torch/examples/example.yaml --sim-backend judo_tpu
     python -m judo_tpu_torch.cli benchmark --tasks cartpole --optimizers ps,mppi --sim-backend judo_tpu
     python -m judo_tpu_torch.cli --platform cpu run --task cartpole --optimizer ps --sim-backend judo_tpu
+    python -m judo_tpu_torch.cli run --task leap_cube --optimizer mppi --sim-backend judo_tpu --gui --gui-port 8008
 
 Tasks and controllers run on the card; ``--platform cpu`` runs the plain
 PyTorch versions on the CPU instead. The ``judo_tpu`` plant needs no
 ``mujoco``; ``mujoco`` and ``mujoco_policy`` need it. The ``--config`` YAML
 has the JAX package's launch-config keys (``task``, ``optimizer``,
 ``simulation_backend``, ``custom_tasks``, ``custom_optimizers``,
-``controller_config_overrides``, ``optimizer_config_overrides``).
+``controller_config_overrides``, ``optimizer_config_overrides``). ``--gui``
+serves the browser GUI (``visualizers/server.py``) beside the two loops and
+prints its address.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ class LoopReport:
     rollouts: int
     seconds: float  # wall time of the paced loops
     ticks: int  # plant steps taken
-    ticks_due: int  # plant steps the wall time of its loop called for (its seconds / the timestep)
+    ticks_due: int  # plant steps the wall time of its loop called for, at each task's timestep
     plans: int  # update_action calls in the paced loop
     warmup_plans: int  # update_action calls before it
     overruns: int  # ticks longer than the plant's timestep
@@ -96,11 +99,6 @@ class LoopReport:
 
 
 def _cmd_run(args: argparse.Namespace) -> LoopReport:
-    if getattr(args, "gui", False):
-        raise NotImplementedError(
-            "--gui: the browser GUI and renderer are not ported yet (ROADMAP, Queue 1, the visualizer item: "
-            "visualizers/* with the GUI server)"
-        )
     from judo_tpu_torch.app.bus import MessageBus
     from judo_tpu_torch.app.nodes import ControllerNode, SimulationNode
 
@@ -114,6 +112,14 @@ def _cmd_run(args: argparse.Namespace) -> LoopReport:
     t0 = time.perf_counter()
     ctrl_node.warmup()
     print(f"warmup done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    gui_server = None
+    if args.gui:
+        from judo_tpu_torch.visualizers.server import GuiServer
+
+        gui_server = GuiServer(bus, ctrl_node, port=args.gui_port)
+        gui_server.start()
+        print(f"GUI: http://localhost:{gui_server.port}", flush=True)
 
     threads = [
         threading.Thread(target=sim_node.spin, daemon=True),
@@ -142,11 +148,13 @@ def _cmd_run(args: argparse.Namespace) -> LoopReport:
         ctrl_node.stop()
         for t in threads:
             t.join(timeout=30.0)
+        if gui_server is not None:
+            gui_server.stop()
         report = LoopReport(
             task=ctrl_node.controller.task.name, optimizer=args.optimizer, sim_backend=args.sim_backend,
             device=str(args.device), rollouts=ctrl_node.controller.optimizer_cfg.num_rollouts,
             seconds=time.perf_counter() - t_start, ticks=sim_node.ticks,
-            ticks_due=int(sim_node.wall_seconds / sim_node.sim.timestep), plans=ctrl_node.plans, warmup_plans=1,
+            ticks_due=sim_node.ticks_due, plans=ctrl_node.plans, warmup_plans=1,
             overruns=sim_node.overruns, nonfinite_states=sim_node.nonfinite_states,
             tick_ms=1e3 * np.asarray(sim_node.tick_times), plan_ms=1e3 * np.asarray(ctrl_node.plan_times),
         )
@@ -184,7 +192,8 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--mesh", default=RUN_DEFAULTS["mesh"], help="none only: the port plans on one GPU")
     run.add_argument("--config", default="", help="YAML launch config (see judo_tpu_torch/examples/example.yaml)")
     run.add_argument("--seconds", type=float, default=10.0, help="<=0 runs until Ctrl+C")
-    run.add_argument("--gui", action="store_true", help="serve the browser GUI (not ported yet)")
+    run.add_argument("--gui", action="store_true", help="serve the browser GUI: the scene and live-tunable widgets")
+    run.add_argument("--gui-port", type=int, default=8008, help="the GUI's HTTP port; 0 picks a free one")
     run.set_defaults(func=_cmd_run)
 
     bench = sub.add_parser("benchmark", help="plan-time distribution per task/optimizer pair")

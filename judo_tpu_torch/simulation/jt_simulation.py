@@ -15,13 +15,14 @@ stream.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from judo_tpu_torch.app.structs import MujocoState
 from judo_tpu_torch.physics.fused_rollout import physics_step
-from judo_tpu_torch.physics.lane_engine import kinematics_l
-from judo_tpu_torch.physics.model import num_constraint_rows
+from judo_tpu_torch.physics.model import BALL, FREE, SLIDE, num_constraint_rows
 from judo_tpu_torch.simulation.base import Simulation, sim_ctrl
 from judo_tpu_torch.tasks import Task
 
@@ -132,12 +133,62 @@ def _refuse_policy_task(task: Task) -> None:
         )
 
 
+def _qmul(u, v) -> tuple:
+    """Hamilton product of two quaternions (w, x, y, z)."""
+    uw, ux, uy, uz = u
+    vw, vx, vy, vz = v
+    return (uw * vw - ux * vx - uy * vy - uz * vz, uw * vx + ux * vw + uy * vz - uz * vy,
+            uw * vy - ux * vz + uy * vw + uz * vx, uw * vz + ux * vy - uy * vx + uz * vw)
+
+
+def _qrot(q, v) -> tuple:
+    """``v`` rotated by the unit quaternion ``q`` (the formula of ``l_quat_rotate``)."""
+    w, x, y, z = q
+    a = (y * v[2] - z * v[1], z * v[0] - x * v[2], x * v[1] - y * v[0])
+    b = (y * a[2] - z * a[1], z * a[0] - x * a[2], x * a[1] - y * a[0])
+    return (v[0] + 2.0 * (w * a[0] + b[0]), v[1] + 2.0 * (w * a[1] + b[1]), v[2] + 2.0 * (w * a[2] + b[2]))
+
+
+def _qnormalize(q) -> tuple:
+    n = max(sum(c * c for c in q), 1e-15) ** 0.5
+    return tuple(c / n for c in q)
+
+
 def body_frames(model, mocap_ids: np.ndarray, qpos: np.ndarray, mocap_pos: np.ndarray, mocap_quat: np.ndarray):
-    """(xpos (nbody, 3), xquat (nbody, 4)) of ``model`` (float64) at
-    ``qpos``: the port's own kinematics on the CPU, the mocap bodies
-    ``mocap_ids`` at the given mocap pose (what ``mj_forward`` fills)."""
-    kin = kinematics_l(model, torch.as_tensor(np.asarray(qpos, np.float64)).reshape(-1, 1))
-    xpos, xquat = kin.xpos[:, :, 0].numpy().copy(), kin.xquat[:, :, 0].numpy().copy()
+    """(xpos (nbody, 3), xquat (nbody, 4)) of ``model`` at ``qpos``: the body
+    tree of ``kinematics_l`` walked for one environment in Python floats on
+    the host (``kinematics_l`` on one column costs milliseconds of small
+    tensor operations), the mocap bodies ``mocap_ids`` at the given mocap
+    pose; what ``mj_forward`` fills."""
+    m = model
+    body_pos, body_quat = m.np64("body_pos").tolist(), m.np64("body_quat").tolist()
+    jnt_pos, jnt_axis, qpos0 = m.np64("jnt_pos").tolist(), m.np64("jnt_axis").tolist(), m.np64("qpos0").tolist()
+    q = np.asarray(qpos, np.float64).tolist()
+    xpos, xquat = [(0.0, 0.0, 0.0)], [(1.0, 0.0, 0.0, 0.0)]
+    for b in range(1, m.nbody):
+        p = m.body_parentid[b]
+        pos = tuple(a + c for a, c in zip(xpos[p], _qrot(xquat[p], body_pos[b])))
+        quat = _qmul(xquat[p], body_quat[b])
+        for j in range(m.body_jntadr[b], m.body_jntadr[b] + m.body_jntnum[b]):
+            jt, a = m.jnt_type[j], m.jnt_qposadr[j]
+            if jt == FREE:
+                pos, quat = tuple(q[a : a + 3]), _qnormalize(q[a + 3 : a + 7])
+                continue
+            if jt == SLIDE:
+                axis = _qrot(quat, jnt_axis[j])
+                pos = tuple(c + (q[a] - qpos0[a]) * d for c, d in zip(pos, axis))
+                continue
+            anchor = tuple(c + d for c, d in zip(_qrot(quat, jnt_pos[j]), pos))
+            if jt == BALL:
+                quat = _qmul(quat, _qnormalize(q[a : a + 4]))
+            else:  # HINGE
+                half = 0.5 * (q[a] - qpos0[a])
+                s, ax = math.sin(half), jnt_axis[j]
+                quat = _qmul(quat, (math.cos(half), ax[0] * s, ax[1] * s, ax[2] * s))
+            pos = tuple(c - d for c, d in zip(anchor, _qrot(quat, jnt_pos[j])))
+        xpos.append(pos)
+        xquat.append(quat)
+    xpos, xquat = np.asarray(xpos, np.float64), np.asarray(xquat, np.float64)
     if len(mocap_ids):
         xpos[mocap_ids] = mocap_pos
         xquat[mocap_ids] = mocap_quat / np.linalg.norm(mocap_quat, axis=-1, keepdims=True)
@@ -146,9 +197,8 @@ def body_frames(model, mocap_ids: np.ndarray, qpos: np.ndarray, mocap_pos: np.nd
 
 class _DeferredFrames(MujocoState):
     """A state message whose body frames (``xpos``, ``xquat``) are computed
-    on first read. The controller never reads them, and the kinematics of
-    one environment take milliseconds of host time (many small tensor
-    operations), which the plant's tick would otherwise pay every tick."""
+    on first read: the controller never reads them, so the plant's tick
+    does not pay for them; the GUI reads them at its own rate."""
 
     def __init__(self, frames, **fields) -> None:
         self._make_frames, self._frames = frames, None

@@ -17,7 +17,7 @@ from judo_tpu_torch.simulation.base import sim_ctrl
 from judo_tpu_torch.simulation.mj_simulation import MJSimulation
 from judo_tpu_torch.tasks import Task
 from judo_tpu_torch.tasks.spot import spot_constants as sc
-from judo_tpu_torch.tasks.spot.policy import mlp_layers_from_jtw
+from judo_tpu_torch.utils.onnx_loader import gemm_chain, read_container
 
 _NP_ACTIVATIONS = {
     "Relu": lambda x: np.maximum(x, 0.0),
@@ -41,7 +41,7 @@ class HostSpotPolicy:
     the semantics of ``tasks/spot/policy.py`` (the planning side's)."""
 
     def __init__(self) -> None:
-        layers, activations = mlp_layers_from_jtw(sc.SPOT_LOCOMOTION_POLICY_PATH)
+        layers, activations = gemm_chain(read_container(sc.SPOT_LOCOMOTION_POLICY_PATH))
         # the container holds W as (out, in); x @ W^T + b
         self.layers = [(np.asarray(w, np.float64).T, np.asarray(b, np.float64)) for w, b in layers]
         self.activations = activations

@@ -7,6 +7,10 @@ Where ``mujoco`` is installed the model is lowered from the task's MJCF with
 ``put_model``; elsewhere it is read from a committed snapshot of the same
 lowering (``judo_tpu_torch/models/*.npz``).
 
+The snapshot also holds what a scene draws and the planning model does not
+(``render_fields``: names, colours, contact types, mesh triangles), so the
+GUI draws a task without mujoco and without building it.
+
 Tasks live on the card unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"``, and ``resolve_device`` refuses it, naming the way
 out, where no CUDA GPU exists.
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from judo_tpu_torch.physics.model import (
-    SENSOR_FRAMEPOS, PhysicsModel, load_snapshot, put_model, resolve_device, snapshot_dict,
+    GEOM_MESH, SENSOR_FRAMEPOS, PhysicsModel, load_snapshot, put_model, resolve_device, snapshot_dict,
 )
 
 SNAPSHOT_DIR = Path(__file__).resolve().parents[1] / "models"
@@ -65,8 +69,60 @@ def trace_sensors_from_mujoco(mj_model) -> list[int]:
     return ids
 
 
+# A mesh with more faces than this is drawn as its convex hull (judo_tpu/visualizers/scene.py:104-124).
+MESH_MAX_FACES = 3000
+
+
+def _mesh_triangles(mj, mesh_id: int) -> np.ndarray:
+    """(F, 3, 3) triangle soup of a compiled mesh; a large mesh decimated to
+    its convex hull, or cut to its first faces where scipy cannot hull it."""
+    va, vn = int(mj.mesh_vertadr[mesh_id]), int(mj.mesh_vertnum[mesh_id])
+    fa, fn = int(mj.mesh_faceadr[mesh_id]), int(mj.mesh_facenum[mesh_id])
+    verts = np.asarray(mj.mesh_vert[va : va + vn], np.float64)
+    faces = np.asarray(mj.mesh_face[fa : fa + fn], np.int64)
+    if fn > MESH_MAX_FACES:
+        try:
+            from scipy.spatial import ConvexHull
+
+            hull = ConvexHull(verts)
+            verts, faces = hull.points, hull.simplices
+        except Exception:  # noqa: BLE001 — any failure of the hull falls back to truncation, as in the JAX scene
+            faces = faces[:MESH_MAX_FACES]
+    return verts[faces]
+
+
+def render_fields(mj) -> dict:
+    """What a scene draws of a compiled ``mujoco.MjModel`` beyond the planning
+    model: ``body_names`` and ``geom_names`` ('' where unnamed),
+    ``geom_rgba`` (float32, as mujoco holds it), ``geom_contype``, and the
+    triangles of every mesh geom, ``geom_mesh_tri`` (F, 3, 3), geom g's rows
+    from ``geom_mesh_tri_adr[g]`` to ``geom_mesh_tri_adr[g + 1]`` (none for
+    a geom that is not a mesh or names no mesh)."""
+    import mujoco
+
+    def names(obj, n: int) -> np.ndarray:
+        return np.asarray([mujoco.mj_id2name(mj, obj, i) or "" for i in range(n)], dtype=str)
+
+    tris = []
+    for g in range(mj.ngeom):
+        mesh_id = int(mj.geom_dataid[g])
+        if int(mj.geom_type[g]) == GEOM_MESH and 0 <= mesh_id < mj.nmesh:
+            tris.append(_mesh_triangles(mj, mesh_id))
+        else:
+            tris.append(np.zeros((0, 3, 3)))
+    return {
+        "body_names": names(mujoco.mjtObj.mjOBJ_BODY, mj.nbody),
+        "geom_names": names(mujoco.mjtObj.mjOBJ_GEOM, mj.ngeom),
+        "geom_rgba": np.asarray(mj.geom_rgba).copy(),
+        "geom_contype": np.asarray(mj.geom_contype, np.int64).copy(),
+        "geom_mesh_tri": np.concatenate(tris).reshape(-1, 3, 3),
+        "geom_mesh_tri_adr": np.cumsum([0] + [len(t) for t in tris]).astype(np.int64),
+    }
+
+
 def model_from_mujoco(xml: str, solver_iterations: int, collision_pair_filter=None) -> tuple[PhysicsModel, dict]:
-    """(float64 planning model, extras) lowered with mujoco from an MJCF string."""
+    """(float64 planning model, extras) lowered with mujoco from an MJCF string;
+    the extras hold the trace sensors, the mocap bodies and ``render_fields``."""
     import mujoco
 
     mj = mujoco.MjSpec.from_string(xml).compile()
@@ -78,6 +134,7 @@ def model_from_mujoco(xml: str, solver_iterations: int, collision_pair_filter=No
         "trace_sensor_ids": np.asarray(trace, np.int64),
         "trace_sensor_adr": np.asarray([int(mj.sensor_adr[i]) for i in trace], np.int64),
         "mocap_body_ids": np.asarray(mocap, np.int64),
+        **render_fields(mj),
     }
     return m, extras
 

@@ -2,11 +2,12 @@
 ``judo_tpu/tasks/spot/policy.py`` and ``policy_lanes.py``).
 
 - ``SpotPolicy``: the locomotion MLP as an ``nn.Module`` (84 -> 512 -> 256 ->
-  128 -> 12, ELU on the hidden layers), loaded from the package's ``.jtw``
-  container (``read_jtw``) or carried across from the JAX parameters
-  (``policy_from_numpy``). Its parameters are float32 at every dtype, as the
-  JAX lanes path rounds them (``policy_lanes.py:60-67``); a float64 rollout
-  runs the same rounded values.
+  128 -> 12, ELU on the hidden layers), an ``MLPPolicy`` of
+  ``utils/onnx_loader.py`` loaded from the package's ``.jtw`` container or a
+  user's ``.onnx`` or ``.jtw`` (``SpotPolicy.load``), or carried across from
+  the JAX parameters (``policy_from_numpy``). Its parameters are float32 at
+  every dtype, as the JAX lanes path rounds them (``policy_lanes.py:60-67``);
+  a float64 rollout runs the same rounded values.
 - ``build_observation_l``: the 84-dim observation; ``control_from_policy_l``:
   the 19 position targets with the first-active-leg override;
   ``spot_policy_step_l``: one 50 Hz tick (obs -> MLP -> ctrl -> substeps).
@@ -17,26 +18,21 @@ policy rollout kernel (``csrc/jt_policy.cuh``).
 
 from __future__ import annotations
 
-import struct
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from judo_tpu_torch.physics.lane_engine import l_quat_rotate
 from judo_tpu_torch.physics.lane_step import step_l
-from judo_tpu_torch.physics.model import PhysicsModel
+from judo_tpu_torch.physics.model import PhysicsModel, resolve_device
 from judo_tpu_torch.tasks.spot import spot_constants as sc
+from judo_tpu_torch.utils.onnx_loader import MLPPolicy, gemm_chain, load_graph
 
 # Activation codes of csrc/jt_policy.cuh (the ones the Spot network uses).
 # ELU is the exp form of the JAX lanes path (policy_lanes.py:42-46).
 ACTIVATIONS = {"": 0, "Elu": 1}
-# Activation ops a Gemm chain may carry (judo_tpu/utils/onnx_loader.py);
-# SpotPolicy refuses, naming them, those without a code above.
-_ONNX_ACTIVATIONS = ("Elu", "Relu", "Tanh", "Sigmoid", "LeakyRelu", "Softsign")
-_ONNX_DTYPES = {1: np.float32, 7: np.int64, 11: np.float64}
 
 
 def activate(act: str, x: torch.Tensor) -> torch.Tensor:
@@ -45,87 +41,24 @@ def activate(act: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def read_jtw(path: str | Path) -> tuple[dict, list]:
-    """(tensors, nodes) of a ``.jtw`` container: named arrays and the graph's
-    (op, inputs, outputs) nodes (format of ``native/onnx_extract.cpp``)."""
-    data = Path(path).read_bytes()
-    if data[:8] != b"JTONNX1\0":
-        raise ValueError(f"{path}: not a .jtw container")
-    off = 8
-
-    def take(fmt):
-        nonlocal off
-        v = struct.unpack_from(fmt, data, off)[0]
-        off += struct.calcsize(fmt)
-        return v
-
-    def text():
-        nonlocal off
-        n = take("<I")
-        off += n
-        return data[off - n : off].decode()
-
-    tensors = {}
-    for _ in range(take("<I")):
-        name, dtype, ndims = text(), take("<I"), take("<I")
-        dims = [take("<Q") for _ in range(ndims)]
-        nbytes = take("<Q")
-        raw = data[off : off + nbytes]
-        off += nbytes
-        tensors[name] = np.frombuffer(raw, dtype=_ONNX_DTYPES.get(dtype, np.float32)).reshape(dims).copy()
-    nodes = []
-    for _ in range(take("<I")):
-        op = text()
-        ins = [text() for _ in range(take("<I"))]
-        outs = [text() for _ in range(take("<I"))]
-        nodes.append((op, ins, outs))
-    return tensors, nodes
-
-
-def mlp_layers_from_jtw(path: str | Path) -> tuple[list, tuple]:
-    """([(W (out, in), b (out,)), ...], activations) of a Gemm/activation
-    chain (the parse of ``judo_tpu/utils/onnx_loader.py:mlp_from_onnx``)."""
-    tensors, nodes = read_jtw(path)
-    layers, acts = [], []
-    for op, ins, _ in nodes:
-        if op == "Gemm":
-            w = tensors[next(i for i in ins if "weight" in i)]
-            b = tensors[next(i for i in ins if "bias" in i)]
-            layers.append((w, b))  # Gemm with transB: out = x W^T + b, W (out, in)
-            acts.append("")
-        elif op in _ONNX_ACTIVATIONS:
-            if not layers:
-                raise ValueError(f"activation {op} before any Gemm")
-            acts[-1] = op
-        elif op not in ("Flatten", "Identity", "Cast"):
-            raise NotImplementedError(f"unsupported op in the policy network: {op}")
-    return layers, tuple(acts)
-
-
-class SpotPolicy(nn.Module):
-    """The locomotion MLP. ``layers[i].weight`` (out, in) is the kernel's W^T;
-    ``activations[i]`` follows layer i ("" for none)."""
+class SpotPolicy(MLPPolicy):
+    """The locomotion MLP, in float32. ``layers[i].weight`` (out, in) is the
+    kernel's W^T; ``activations[i]`` follows layer i ("" for none), each one
+    the kernel computes."""
 
     def __init__(self, layers: list, activations: tuple) -> None:
-        super().__init__()
         bad = [a for a in activations if a not in ACTIVATIONS]
         if bad:
             raise NotImplementedError(f"activations {bad} (ported: {sorted(ACTIVATIONS)})")
-        self.layers = nn.ModuleList()
-        for w, b in layers:
-            lin = nn.Linear(w.shape[1], w.shape[0])
-            with torch.no_grad():
-                lin.weight.copy_(torch.tensor(np.asarray(w, np.float32)))
-                lin.bias.copy_(torch.tensor(np.asarray(b, np.float32)))
-            lin.requires_grad_(False)
-            self.layers.append(lin)
-        self.activations = tuple(activations)
+        super().__init__(layers, activations, dtype=torch.float32)
         self._packed: dict = {}
 
     @staticmethod
-    def load(device="cpu") -> "SpotPolicy":
-        """The package's Spot locomotion policy on ``device``."""
-        return SpotPolicy(*mlp_layers_from_jtw(sc.SPOT_LOCOMOTION_POLICY_PATH)).to(device)
+    def load(path: str | Path | None = None, device="cuda") -> "SpotPolicy":
+        """A locomotion policy from a user's ``.onnx`` or ``.jtw`` (the
+        package's own ``.jtw`` by default) on ``device``."""
+        graph = load_graph(sc.SPOT_LOCOMOTION_POLICY_PATH if path is None else path)
+        return SpotPolicy(*gemm_chain(graph)).to(resolve_device(device))
 
     @property
     def dims(self) -> list:
@@ -219,6 +152,6 @@ def spot_policy_step_l(
 
 
 __all__ = [
-    "SpotPolicy", "build_observation_l", "control_from_policy_l", "mlp_l", "policy_from_numpy", "read_jtw",
+    "SpotPolicy", "build_observation_l", "control_from_policy_l", "mlp_l", "policy_from_numpy",
     "spot_policy_step_l",
 ]

@@ -172,6 +172,37 @@ def test_plant_loop_keeps_pace_with_the_wall_clock(monkeypatch, stall, behind):
     assert min(np.diff(starts)) >= 0.3 * dt  # no tick started before the one before it ended
 
 
+def test_plant_loop_counts_ticks_due_across_a_task_switch(monkeypatch):
+    """A switch from cartpole (40 ms) to cylinder_push (20 ms) halfway: the
+    ticks due are each stretch's wall time over its own timestep, not the
+    whole wall time over the last one."""
+    from judo_tpu_torch.app import nodes
+
+    node = SimulationNode(MessageBus(), "cartpole", backend="judo_tpu", device="cpu")
+    dt_before = node.sim.timestep
+    clock = _FakeClock(late=0.05 * dt_before)
+    monkeypatch.setattr(nodes, "time", clock)
+    starts = []
+
+    def fake_tick():
+        if node.ticks == 100:
+            node._on_task("cylinder_push")
+        starts.append(clock.t)
+        clock.t += 0.3 * node.sim.timestep
+        node.ticks += 1
+        if node.ticks == 200:
+            node.stop()
+
+    monkeypatch.setattr(node, "step_once", fake_tick)
+    node.spin()
+    dt_after = node.sim.timestep
+    assert (dt_before, dt_after) == (0.04, 0.02)
+    t_switch = starts[100]
+    expected = int(t_switch / dt_before + (node.wall_seconds - t_switch) / dt_after)
+    assert node.ticks == 200 and node.ticks_due == expected == 200
+    assert int(node.wall_seconds / dt_after) >= 290  # the whole run over the last timestep
+
+
 def test_benchmark_harness_runs_and_formats():
     np.random.seed(0)
     results = run_benchmark(tasks=["cartpole"], optimizers=["ps", "mppi"], num_samples=4, warmup=1,
@@ -199,8 +230,6 @@ def test_cli_parser():
 
 
 def test_cli_refusals():
-    with pytest.raises(NotImplementedError, match="visualizer"):
-        main(["--platform", "cpu", "run", "--gui", "--seconds", "0.1"])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ControllerNode(MessageBus(), "cartpole", "ps", mesh="auto", device="cpu")
     if not torch.cuda.is_available():
