@@ -20,7 +20,9 @@ without the final line):
      forces carried: the leap model at 320 and 33 rollouts, cylinder_push
      (cylinder-cylinder and cylinder-box pairs) at 32 and 33, fr3_pick
      (capsule-capsule pairs, the finger-coupling equality rows, five distance
-     sensors) at 64 and 33;
+     sensors) at 64 and 33; and 50 steps at 64 rollouts on the check scene
+     (judo_tpu_torch/models/check_scene.py: sphere-sphere and sphere-capsule
+     pairs, springs and actuator force limits on a free and a ball joint);
    - fused_policy_rollout (K2) against policy_rollout_lanes_reference on
      spot_navigate, 24 and 80 rollouts, 3 policy ticks, a random nonzero
      starting policy output; and on spot_box_push, spot_tire_roll and
@@ -32,7 +34,9 @@ without the final line):
    - physics_step (K3) against step_l with a cold probe, leap at 320, spot
      at 24 and fr3_pick at 64 rollouts;
 4. paths, each driven with every launch count set to 0 just before it and
-   read just after:
+   read just after. Every plan runs through the controller's solve cache: on
+   the card a CUDA graph per shape signature, captured at its first solve and
+   replayed; a replay adds its kernels' launches to their counters:
    - leap: make_controller("leap_cube", "mppi") on cuda, float32, 320
      rollouts, 3 warm-up and 10 timed solves, one K1 launch per solve;
    - spot: make_controller("spot_navigate", "mppi") on cuda, float32, 24
@@ -50,8 +54,8 @@ without the final line):
      policy ticks x 2 physics steps), 1 warm-up and 5 timed solves, one K2
      launch per solve;
    - pipelining: leap_cube + mppi (320 rollouts) and spot_navigate + mppi at
-     pipeline_depth 0 and 2, 5 + 20 calls each on the same states, as
-     bench.py times them (host
+     pipeline_depth 0 and 2 (leap also with an eager twin, timed only),
+     5 + 20 calls each on the same states, as bench.py times them (host
      time of each update_action; at depth 2 in steady state); every depth-2
      call must return before the card has run the solve it dispatched, and
      the flushed depth-2 run must have published depth 0's mirrors, bitwise;
@@ -64,7 +68,8 @@ without the final line):
      flight, which must end before the solve does;
    - the closed loop: judo_tpu_torch.cli.main(["run", ...]) with the
      judo_tpu plant for 5 s, leap_cube + mppi (320 rollouts, set as a launch
-     config's override sets them) and the CLI's default cylinder_push + ps;
+     config's override sets them) and the CLI's default cylinder_push + ps,
+     and leap once more with an eager twin's controller (timed only);
      K3 launches equal the plant's ticks, K1 launches the plans and the
      warm-up, every published state is finite, the run ends with "shutdown
      complete"; the plant's ticks are printed against those its wall time
@@ -84,19 +89,31 @@ without the final line):
      Printed: plan and tick percentiles, ticks against ticks due (the pace,
      not a check), overruns, states per second, the state message's build
      and encode time on the host, the hello's size, the switch's latency;
+   - the solve graphs: leap_cube + mppi (320 rollouts), cylinder_push + ps,
+     fr3_pick + cem and spot_navigate + mppi, float32, each beside an eager
+     twin (the plain ``solve`` in place of the cache entry, the same seed):
+     6 solves, bitwise equal in published times, knots, rewards and traces
+     and in the carry, with a tune of temperature, sigma, a reward weight and
+     the horizon within its bucket after the third (no new capture), then a
+     change of noise_ramp (one new capture) and 2 more solves; the kernel's
+     launches equal the solves; then 10 timed solves of each, graph and
+     eager in turns. leap -> cylinder_push -> leap as new controllers: the
+     return is a cache hit. Printed: each entry's graph memory pool;
    - the profile: judo_tpu_torch.utils.profiling.trace around 5 leap_cube +
      mppi solves at depth 0, 20 calls at depth 2 and 10 cylinder_push + ps
-     solves, each update_action inside annotate("update_action"); K1's
-     kernel events in the Chrome trace must equal its launch counter, and
-     per segment the card's busy share (the union of its kernel and copy
-     intervals over the segment's window) and idle share are printed;
+     solves, and the depth-0 segments again with eager twins, each
+     update_action inside annotate("update_action"); K1's kernel events in
+     the Chrome trace must equal its launch counter, and per segment the
+     card's busy share (the union of its kernel and copy intervals over the
+     segment's window), idle share and kernel launches per solve are printed;
 5. one float64 solve per path, cuda against cpu with shared noise (leap and
    spot with MPPI, cylinder_push with PS, fr3_pick with CEM, spot_box_push
    with MPPI, whose float64 kernel runs with J in global memory);
 6. timing with CUDA events: each kernel against its plain version, and its
    bound (the larger of its bytes over the memory rate and its operations
    over the float32 rate, counted from the shapes of this run); K1 also on
-   cylinder_push (32 rollouts, T 52) and fr3_pick (64, T 252); K2 also with
+   cylinder_push (32 rollouts, T 52) and fr3_pick (64, T 252; its plain
+   version timed over 25 steps and scaled to the horizon); K2 also with
    no physics substeps, which leaves the policy's share of a tick, and on the
    three object scenes at R 24, T 100 x 2 (their plain version timed over 3
    ticks); K3 at the plant's shape (leap, one environment, the model's own
@@ -142,12 +159,17 @@ OBJECT_TASKS = ("spot_box_push", "spot_tire_roll", "spot_tire_upright")
 # the dynamics from there split apart at the rounding of the operations
 # (section 6 of PERF.md): the flat tire has a check of its own, over 1 tick.
 TIRE_TILT, T_FLAT = 0.5, 1
-# Rollouts of the K1 checks per scene, and of the K3 check.
-K1_B = {"leap": (B_MAIN, 33), "cylinder_push": (32, 33), "fr3": (64, 33)}
+# Rollouts of the K1 checks per scene, and of the K3 check; the steps of the
+# K1 checks per scene.
+K1_B = {"leap": (B_MAIN, 33), "cylinder_push": (32, 33), "fr3": (64, 33), "check": (64,)}
+K1_T = {"check": 50}
 K3_B = {"leap": B_MAIN, "spot": R_SPOT, "fr3": 64}
 # The plant phase: ticks of JTSimulation on leap_cube per dtype; the closed
 # loops' length in seconds; the harness's plans per pair.
 PLANT_TICKS, LOOP_SECONDS, HARNESS_SAMPLES = 20, 5, 20
+# Steps of fr3_pick's plain version timed (its time scaled to T 252): the
+# whole horizon took 67-109 s of the run.
+FR3_PLAIN_STEPS = 25
 # The closed loop's pace (section 2 of PERF.md): the plant's ticks against
 # those its wall time called for. Printed as met or not, not a check: host
 # timing on a shared machine is not a property of the kernels.
@@ -159,12 +181,26 @@ PACE_LIMIT = 0.99
 # segments, each a pair of points.
 GUI_SECONDS, GUI_SWITCH_AT, GUI_TEMPERATURE, GUI_MIN_HZ = 8, 5.0, 0.1234, 20.0
 LEAP_TRACES = [495, 2, 3]
-# The profile phase: (label, task, optimizer, rollouts, pipeline_depth, calls)
-# per segment, and where its Chrome trace goes.
-PROFILE_SEGMENTS = (("leap_cube mppi depth 0", "leap_cube", "mppi", B_MAIN, 0, 5),
-                    ("leap_cube mppi depth 2", "leap_cube", "mppi", B_MAIN, 2, 20),
-                    ("cylinder_push ps depth 0", "cylinder_push", "ps", 32, 0, 10))
+# The profile phase: (label, task, optimizer, rollouts, pipeline_depth, calls,
+# eager) per segment (eager: the plain solve in place of the solve graph), and
+# where its Chrome trace goes.
+PROFILE_SEGMENTS = (("leap_cube mppi depth 0", "leap_cube", "mppi", B_MAIN, 0, 5, False),
+                    ("leap_cube mppi depth 2", "leap_cube", "mppi", B_MAIN, 2, 20, False),
+                    ("cylinder_push ps depth 0", "cylinder_push", "ps", 32, 0, 10, False),
+                    ("leap_cube mppi depth 0 eager", "leap_cube", "mppi", B_MAIN, 0, 5, True),
+                    ("cylinder_push ps depth 0 eager", "cylinder_push", "ps", 32, 0, 10, True))
 PROFILE_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_profile"
+# The graph phase: (task, optimizer, rollouts; None: the task's default) per
+# pair of controllers, each through the solve cache and as an eager twin; the
+# solves compared before the tune, after it and after noise_ramp's change; the
+# timed solves of each; the reward weight each task's tune doubles (its path
+# in the task's config); the rollouts of the switch-back check's controllers.
+GRAPH_TASKS = (("leap_cube", "mppi", B_MAIN), ("cylinder_push", "ps", None), ("fr3_pick", "cem", None),
+               ("spot_navigate", "mppi", None))
+GRAPH_SOLVES, GRAPH_TUNE_AT, GRAPH_AFTER_RAMP, GRAPH_TIMED = 6, 3, 2, 10
+REWARD_WEIGHT = {"leap_cube": ("w_rot",), "cylinder_push": ("w_cart_position",),
+                 "fr3_pick": ("global_weights", "w_upright"), "spot_navigate": ("w_goal",)}
+SWITCH_R = {"leap_cube": 256, "cylinder_push": 40}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -209,11 +245,22 @@ CYLINDER_PUSH_CONTACT = np.array([0.0, 0.0, 0.45, 0.05])
 
 def scene_inputs(scene: str, m, B: int, T: int, seed: int, dtype, device):
     """(qpos (nq, B), qvel (nv, B), ctrl (T, nu, B)) of a scene: states with
-    active contacts, and controls around the task's warm start."""
+    active contacts, and controls around the task's warm start (on the check
+    scene: the free and ball joints turned from their springs' rest, the
+    pusher near the pendulum's rod)."""
     if scene == "leap":
         return leap_inputs(m, B, T, seed, dtype, device)
     rng = np.random.default_rng(seed)
-    if scene == "cylinder_push":
+    if scene == "check":
+        qp = np.tile(np.asarray(m.qpos0, np.float64), (B, 1))
+        qp[:, :2] += 0.005 * rng.standard_normal((B, 2))
+        for adr in (3, 7):  # the free joint's and the ball joint's quaternions
+            q = qp[:, adr : adr + 4] + 0.1 * rng.standard_normal((B, 4))
+            qp[:, adr : adr + 4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+        qp[:, 11] = -0.02 + 0.01 * rng.standard_normal(B)
+        qv = 0.1 * rng.standard_normal((B, m.nv))
+        ct = 0.5 * rng.standard_normal((T, m.nu, B))
+    elif scene == "cylinder_push":
         qp = np.tile(CYLINDER_PUSH_CONTACT, (B, 1)) + 0.02 * rng.standard_normal((B, 4))
         qv = 0.3 * rng.standard_normal((B, m.nv))
         ct = 0.5 * rng.standard_normal((T, m.nu, B))
@@ -229,7 +276,14 @@ def scene_inputs(scene: str, m, B: int, T: int, seed: int, dtype, device):
 
 
 def scene_model(scene: str, dtype):
+    import torch
+
     from judo_tpu_torch.tasks import get_registered_tasks
+
+    if scene == "check":
+        from judo_tpu_torch.models import check_scene
+
+        return check_scene.load(np.float64 if dtype == torch.float64 else np.float32)
 
     name = {"leap": "leap_cube", "fr3": "fr3_pick"}.get(scene, scene)
     return get_registered_tasks()[name][0](device="cuda", dtype=dtype).planning_model
@@ -326,14 +380,14 @@ def split_distance_errs(m, err: dict, ref_sens, out_sens, plain64=None) -> None:
         err["distance_plain_f32_vs_f64"] = float((plain64[..., rows, :] - ref_sens[..., rows, :].double()).abs().max())
 
 
-def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap") -> dict:
+def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap", T: int = T_CHECK) -> dict:
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
     m = scene_model(scene, dtype)
-    qp, qv, ct = scene_inputs(scene, m, B, T_CHECK + 1, seed=1, dtype=dtype, device="cuda")
+    qp, qv, ct = scene_inputs(scene, m, B, T + 1, seed=1, dtype=dtype, device="cuda")
     zeros = torch.zeros((num_constraint_rows(m), B), dtype=dtype, device="cuda")
     # onset forces from one plain step: the carried warm start of a real solve
     f0 = rollout_lanes_reference(m, qp, qv, ct[:1], zeros, 1, 8)[3]
@@ -583,7 +637,168 @@ def object_task_path(name: str) -> dict:
             "reward_max": float(c.rewards.max()), "reward_min": float(c.rewards.min())}
 
 
-def depth_path(task_name: str, R: int, warmup: int, timed: int) -> dict:
+class EagerSolve:
+    """The plain ``solve`` in place of a solve cache entry: the eager path the
+    graph replaced, its state, time and metadata copied up from their pinned
+    staging, its noise drawn from the carry's generator as an entry draws it."""
+
+    def __call__(self, ctrl, carry, inputs):
+        from judo_tpu_torch.controller.controller import solve
+        from judo_tpu_torch.controller.solve_graph import draw_noise, tree_map
+
+        inputs = tree_map(lambda x: x.to(ctrl.device, non_blocking=True), inputs)
+        return solve(ctrl, carry, *inputs, draw_noise(ctrl, carry.generator))
+
+
+def eager(c):
+    """``c`` planning with the eager solve: its eager twin."""
+    c._get_solve = lambda inputs: EagerSolve()
+    return c
+
+
+def graph_controller(task: str, opt: str, R: int | None, eager_twin: bool = False):
+    """A float32 controller on the card, seeded (numpy's global state too, for
+    the task's reset); the eager twin with ``eager_twin``."""
+    import torch
+
+    from judo_tpu_torch.controller import make_controller
+
+    np.random.seed(0)
+    c = make_controller(task, opt, device="cuda", dtype=torch.float32, seed=0)
+    if R:
+        c.optimizer_cfg.num_rollouts = R
+        c._sync_state_shapes()
+    if task == "spot_navigate":
+        c.task.config.goal_position = np.array([1.5, 0.5, 0.52])
+    return eager(c) if eager_twin else c
+
+
+def same_plan(a, b) -> bool:
+    """Published times, knots, rewards and traces, and the carry, bitwise equal."""
+    import torch
+
+    from judo_tpu_torch.controller.solve_graph import CARRY_FIELDS, leaves
+
+    tr = lambda c: np.zeros(0) if c.traces is None else c.traces  # noqa: E731
+    pub = all(np.array_equal(x, y) for x, y in zip((a.times, a.nominal_knots, a.rewards, tr(a)),
+                                                   (b.times, b.nominal_knots, b.rewards, tr(b))))
+    ca, cb = ([x for f in CARRY_FIELDS for x in leaves(getattr(c._carry, f)) if x is not None] for c in (a, b))
+    return pub and len(ca) == len(cb) and all(torch.equal(x, y) for x, y in zip(ca, cb))
+
+
+def tune(c, task: str) -> None:
+    """Temperature and sigma (those the optimizer has) by 1.25, a reward
+    weight doubled, and the horizon one step shorter, inside its bucket."""
+    for name in ("temperature", "sigma", "sigma_min", "sigma_max"):
+        if hasattr(c.optimizer_cfg, name):
+            setattr(c.optimizer_cfg, name, 1.25 * getattr(c.optimizer_cfg, name))
+    *path, leaf = REWARD_WEIGHT[task]
+    cfg = c.task.config
+    for name in path:
+        cfg = getattr(cfg, name)
+    setattr(cfg, leaf, 2.0 * getattr(cfg, leaf))
+    T = c.num_timesteps
+    c.controller_cfg.horizon -= c.task.dt
+    if c.num_timesteps != T:
+        raise RuntimeError(f"{task}: the tuned horizon left its bucket ({T} -> {c.num_timesteps})")
+
+
+def graph_phase(task: str, opt: str, R: int | None) -> dict:
+    """The solve graph of ``task`` + ``opt`` against its eager twin: solves
+    compared bitwise through a tune and a change of noise_ramp, the captures
+    each made, the kernel's launches of the graph controller, then timed
+    solves of both in turns."""
+    import torch
+
+    from judo_tpu_torch.controller.solve_graph import SolveGraph
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout
+
+    g, e = graph_controller(task, opt, R), graph_controller(task, opt, R, eager_twin=True)
+    kernel = fused_policy_rollout if g.task.uses_locomotion_policy else fused_rollout
+    rng = np.random.default_rng(8)
+    base = np.concatenate([g.task.qpos, np.zeros(g.pm.nv)])
+    out = {"bitwise": [], "launches": 0, "solves": 0, "R": g.optimizer_cfg.num_rollouts, "T": g.num_timesteps}
+
+    def both() -> None:
+        s = base + np.r_[np.zeros(g.pm.nq), 0.02 * rng.standard_normal(g.pm.nv)]
+        g.current_state, e.current_state = s.copy(), s.copy()
+        before = kernel.launches
+        g.update_action()
+        out["launches"] += kernel.launches - before
+        out["solves"] += 1
+        e.update_action()
+        torch.cuda.synchronize()
+        out["bitwise"].append(same_plan(g, e))
+
+    captures = SolveGraph.captures
+    for n in range(GRAPH_SOLVES):
+        if n == GRAPH_TUNE_AT:
+            out["first_captures"], captures = SolveGraph.captures - captures, SolveGraph.captures
+            for c in (g, e):
+                tune(c, task)
+        both()
+    out["tune_captures"], captures = SolveGraph.captures - captures, SolveGraph.captures
+    for c in (g, e):
+        c.optimizer_cfg.noise_ramp *= 1.5
+    for _ in range(GRAPH_AFTER_RAMP):
+        both()
+    out["ramp_captures"] = SolveGraph.captures - captures
+    out["graph_ms"], out["eager_ms"] = [], []
+    for _ in range(GRAPH_TIMED):
+        s = base + np.r_[np.zeros(g.pm.nq), 0.02 * rng.standard_normal(g.pm.nv)]
+        for c, key in ((g, "graph_ms"), (e, "eager_ms")):
+            c.current_state = s.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.update_action()
+            torch.cuda.synchronize()
+            out[key].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def switch_back() -> dict:
+    """leap_cube -> cylinder_push -> leap_cube, each a new controller of a
+    signature no earlier phase used: the entries made and graphs captured by
+    the first two, and by the return (a cache hit: none)."""
+    import torch
+
+    from judo_tpu_torch.controller.solve_graph import SolveGraph
+
+    counts = []
+    for task, opt in (("leap_cube", "mppi"), ("cylinder_push", "ps"), ("leap_cube", "mppi")):
+        before = (SolveGraph.builds, SolveGraph.captures)
+        c = graph_controller(task, opt, SWITCH_R[task])
+        c.current_state = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+        c.update_action()
+        torch.cuda.synchronize()
+        counts.append((SolveGraph.builds - before[0], SolveGraph.captures - before[1]))
+    return {"leap": counts[0], "cylinder_push": counts[1], "return": counts[2]}
+
+
+def graph_pools() -> list | None:
+    """(task, rollouts, steps, dtype, bytes) of each cached graph's private
+    memory pool: its segments in the caching allocator's snapshot. None where
+    the snapshot does not name segments' pools."""
+    import torch
+
+    from judo_tpu_torch.controller import Controller
+
+    snap = torch.cuda.memory_snapshot()
+    if snap and "segment_pool_id" not in snap[0]:
+        return None
+    out = []
+    for sig, entry in list(Controller._solve_cache.items()):
+        if entry.graph is None:
+            continue
+        pool = tuple(entry.graph.pool())
+        nbytes = sum(seg["total_size"] for seg in snap if tuple(seg["segment_pool_id"]) == pool)
+        d = dict(sig)
+        out.append((d["task"][0].rsplit(".", 1)[-1], d["num_rollouts"], d["num_timesteps"], d["dtype"], nbytes))
+    return out
+
+
+def depth_path(task_name: str, R: int, warmup: int, timed: int, eager_twin: bool = False) -> dict:
     """Plan times at pipeline_depth 0 and 2, as bench.py takes them: the host
     time of each update_action on freshly perturbed states, without a sync
     after the call. Each depth starts from a reset controller and runs the
@@ -607,6 +822,8 @@ def depth_path(task_name: str, R: int, warmup: int, timed: int) -> dict:
 
     c = make_controller(task_name, "mppi", device="cuda", dtype=torch.float32, seed=0)
     c.optimizer_cfg.num_rollouts = R
+    if eager_twin:
+        eager(c)
     if task_name == "spot_navigate":
         c.task.config.goal_position = np.array([1.5, 0.5, 0.52])
         base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
@@ -739,19 +956,27 @@ def plant_beside_solve() -> dict:
     return out
 
 
-def closed_loop(task: str, optimizer: str) -> dict:
+def closed_loop(task: str, optimizer: str, eager_twin: bool = False) -> dict:
     """``judo_tpu_torch.cli.main(["run", ...])`` with the judo_tpu plant for
-    LOOP_SECONDS, its output captured and echoed."""
+    LOOP_SECONDS, its output captured and echoed; with ``eager_twin`` the
+    controller node plans with the eager solve."""
     import contextlib
     import io
 
     from judo_tpu_torch import cli
+    from judo_tpu_torch.app import nodes
 
     buf = io.StringIO()
+    real = nodes.make_controller
+    if eager_twin:
+        nodes.make_controller = lambda *a, **k: eager(real(*a, **k))
     reset_counts()
-    with contextlib.redirect_stdout(buf):
-        rep = cli.main(["run", "--task", task, "--optimizer", optimizer, "--sim-backend", "judo_tpu", "--seconds",
-                        str(LOOP_SECONDS)])
+    try:
+        with contextlib.redirect_stdout(buf):
+            rep = cli.main(["run", "--task", task, "--optimizer", optimizer, "--sim-backend", "judo_tpu", "--seconds",
+                            str(LOOP_SECONDS)])
+    finally:
+        nodes.make_controller = real
     counts = read_counts()
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
@@ -940,10 +1165,12 @@ def profile_phase() -> dict:
     from judo_tpu_torch.utils.profiling import annotate, trace
 
     controllers = []
-    for label, task, opt, R, depth, calls in PROFILE_SEGMENTS:
+    for label, task, opt, R, depth, calls, eager_twin in PROFILE_SEGMENTS:
         c = make_controller(task, opt, device="cuda", dtype=torch.float32, seed=0)
         c.optimizer_cfg.num_rollouts = R
         c.controller_cfg.pipeline_depth = depth
+        if eager_twin:
+            eager(c)
         rest = QPOS_REST if task == "leap_cube" else CYLINDER_PUSH_CONTACT
         c.current_state = np.concatenate([rest, np.zeros(c.pm.nv)])
         c.update_action()  # the first solve: kernels loaded, caches filled
@@ -952,7 +1179,7 @@ def profile_phase() -> dict:
     torch.cuda.synchronize()
     reset_counts()
     with trace(PROFILE_DIR) as prof:
-        for (label, _, _, _, _, calls), c in zip(PROFILE_SEGMENTS, controllers):
+        for (label, _, _, _, _, calls, _), c in zip(PROFILE_SEGMENTS, controllers):
             with annotate(label):
                 for _ in range(calls):
                     with annotate("update_action"):
@@ -966,7 +1193,7 @@ def profile_phase() -> dict:
     k1 = [e for e in kernels if "fused_rollout_kernel" in e["name"]]
     regions = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
     segments = []
-    for label, *_, calls in PROFILE_SEGMENTS:
+    for label, *_, calls, _ in PROFILE_SEGMENTS:
         r = regions[label]
         lo, hi = r["ts"], r["ts"] + r["dur"]
         busy = _union_ms(device, lo, hi)
@@ -974,7 +1201,8 @@ def profile_phase() -> dict:
         segments.append({"label": label, "calls": calls, "window_ms": (hi - lo) / 1e3, "busy_ms": busy,
                          "busy": busy / ((hi - lo) / 1e3), "k1_events": len(seg_k1),
                          "k1_ms": sum(e["dur"] for e in seg_k1) / 1e3,
-                         "kernel_events": sum(1 for e in kernels if lo <= e["ts"] < hi)})
+                         "kernel_events": sum(1 for e in kernels if lo <= e["ts"] < hi),
+                         "device_events": sum(1 for a, _ in device if lo <= a < hi)})
     n_regions = sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == "update_action")
     return {"counts": counts, "k1_events": len(k1), "kernel_events": len(kernels), "segments": segments,
             "update_action_regions": n_regions, "trace": str(prof.trace_path)}
@@ -993,10 +1221,8 @@ def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> f
         c.optimizer_cfg.num_rollouts = R
         c.controller_cfg.horizon = horizon
         noise = np.random.default_rng(3).standard_normal((R - 1, c.optimizer_cfg.num_nodes, c.task.nu))
-        opt = c.optimizer
-        opt.sample = lambda p, s, nom, g, opt=opt, noise=noise: opt.sample_from_noise(
-            p, s, nom, torch.as_tensor(noise, dtype=nom.dtype, device=nom.device)
-        )
+        c.optimizer.draw_noise = lambda g, out, noise=noise: out.copy_(
+            torch.as_tensor(noise, dtype=out.dtype, device=out.device))
         if task_name == "leap_cube":
             from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
@@ -1088,14 +1314,17 @@ def timing() -> dict:
     res["fused_policy_rollout"] = (
         k2, k2_plain, *bound_ms(io, R_SPOT * T_FULL * (mlp + 2 * step_flops(sm, 8, False)))
     )
-    # K1 at the shapes of the cylinder_push and fr3_pick paths
+    # K1 at the shapes of the cylinder_push and fr3_pick paths; fr3's plain
+    # version over its first FR3_PLAIN_STEPS steps, scaled to the horizon
     for scene, B, T, reps in (("cylinder_push", 32, 52, 20), ("fr3", 64, 252, 5)):
         m = scene_model(scene, f32)
         ne = num_constraint_rows(m)
         qp, qv, ct = scene_inputs(scene, m, B, T, seed=10, dtype=f32, device="cuda")
         f0 = torch.zeros((ne, B), dtype=f32, device="cuda")
         ms = event_ms(lambda: fused_rollout(m, qp, qv, ct, f0, 1, 8), reps)
-        plain = event_ms(lambda: rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8), 1, warmup=False)
+        steps = FR3_PLAIN_STEPS if scene == "fr3" else T
+        plain = T / steps * event_ms(lambda: rollout_lanes_reference(m, qp, qv, ct[:steps], f0, 1, 8), 1,
+                                     warmup=False)
         io = 4 * B * (m.nq + m.nv + 2 * ne + T * (m.nu + m.nq + m.nv + m.nsensordata))
         res[f"fused_rollout {scene} B={B} T={T}"] = (ms, plain, *bound_ms(io, B * T * step_flops(m, 8, False)))
     # the same launch with no physics substeps: observation, MLP and ctrl only
@@ -1127,7 +1356,8 @@ def occupancy_report() -> list:
         leap, cyl, fr3 = (scene_model(s, dtype) for s in ("leap", "cylinder_push", "fr3"))
         rows = [("fused_rollout leap", leap, False, None), ("physics_step leap", leap, True, None),
                 ("fused_rollout cylinder_push", cyl, False, None), ("fused_rollout fr3", fr3, False, None),
-                ("physics_step fr3", fr3, True, None)]
+                ("physics_step fr3", fr3, True, None), ("fused_rollout check", scene_model("check", dtype), False,
+                                                        None)]
         for scene in ("spot_navigate", *OBJECT_TASKS):
             task = spot_task(scene, dtype)
             rows.append((f"fused_policy_rollout {scene}", task.planning_model, False, task.policy))
@@ -1184,14 +1414,15 @@ def main() -> int:
             check(f"{label} distance sensors (the plain version's own f32 vs f64 error on them "
                   f"{e['distance_plain_f32_vs_f64']:.3e})", e["distance"], LIMITS["f32_distance"])
 
-    for scene in ("leap", "cylinder_push", "fr3"):
+    for scene in ("leap", "cylinder_push", "fr3", "check"):
+        T = K1_T.get(scene, T_CHECK)
         for name in ("f64", "f32"):
             for B in K1_B[scene]:
-                e = errs[("fused_rollout", name, scene, B)] = k1_vs_plain(name, B, scene)
+                e = errs[("fused_rollout", name, scene, B)] = k1_vs_plain(name, B, scene, T)
                 lim = LIMITS[name]
                 for k in ("states", "sensors"):
-                    check(f"fused_rollout vs plain {name} {scene} B={B} T={T_CHECK} {k}", e[k], lim)
-                check_distance(f"fused_rollout vs plain {name} {scene} B={B} T={T_CHECK}", name, e)
+                    check(f"fused_rollout vs plain {name} {scene} B={B} T={T} {k}", e[k], lim)
+                check_distance(f"fused_rollout vs plain {name} {scene} B={B} T={T}", name, e)
                 if name == "f64":
                     check(f"fused_rollout vs plain f64 {scene} B={B} efc0", e["efc0"], lim)
                 else:
@@ -1255,6 +1486,10 @@ def main() -> int:
         print(f"path {label} mppi R={R_SPOT} T={T_FULL}x2 f32: p50 {p['p50_ms']:.2f} ms p95 {p['p95_ms']:.2f} ms "
               f"launches {p['counts']} in 5 solves, rewards [{p['reward_min']:.4f}, {p['reward_max']:.4f}] on {card}",
               flush=True)
+    d = depth_path("leap_cube", B_MAIN, 5, 20, eager_twin=True)
+    print(f"pipelining leap_cube mppi R={B_MAIN} f32, eager twin (the plain solve, no graph), 5 + 20 calls: depth 0 "
+          f"p50 {d[0]['p50_ms']:.2f} ms p95 {d[0]['p95_ms']:.2f} ms; depth 2 p50 {d[2]['p50_ms']:.2f} ms p95 "
+          f"{d[2]['p95_ms']:.2f} ms, dispatch p50 {d[2]['dispatch_p50_ms']:.2f} ms on {card}", flush=True)
     for task_name, R in (("leap_cube", B_MAIN), ("spot_navigate", R_SPOT)):
         d = depth_path(task_name, R, 5, 20)
         d0, d2 = d[0], d[2]
@@ -1287,6 +1522,32 @@ def main() -> int:
           f"{b['tick_host_ms']:.3f} ms with the solve {'ended' if b['solve_ended_first'] else 'still running'}: "
           f"{'ok' if good else 'FAIL'} on {card}", flush=True)
 
+    graphs = {}
+    for task_name, opt_name, R in GRAPH_TASKS:
+        gp = graphs[task_name] = graph_phase(task_name, opt_name, R)
+        good = (all(gp["bitwise"]) and gp["tune_captures"] == 0 and gp["ramp_captures"] == 1
+                and gp["launches"] == gp["solves"])
+        ok &= good
+        print(f"graph {task_name} {opt_name} R={gp['R']} T={gp['T']} f32: {gp['solves']} solves through the cache "
+              f"bitwise equal to the eager solve in published times, knots, rewards, traces and carry: "
+              f"{sum(gp['bitwise'])} of {len(gp['bitwise'])}; captures: {gp['first_captures']} in the first "
+              f"{GRAPH_TUNE_AT} solves, {gp['tune_captures']} after the tune of temperature, sigma, a reward weight and "
+              f"the horizon, {gp['ramp_captures']} after noise_ramp's change; kernel launches {gp['launches']} in "
+              f"{gp['solves']} solves: {'ok' if good else 'FAIL'}", flush=True)
+        print(f"  time graph {task_name} {opt_name}: graph {pcts(gp['graph_ms'])}; eager {pcts(gp['eager_ms'])}, "
+              f"{GRAPH_TIMED} solves each in turns on {card}", flush=True)
+    sb = switch_back()
+    good = sb["leap"] == (1, 1) and sb["cylinder_push"] == (1, 1) and sb["return"] == (0, 0)
+    ok &= good
+    print(f"graph switch leap_cube R={SWITCH_R['leap_cube']} -> cylinder_push R={SWITCH_R['cylinder_push']} -> "
+          f"leap_cube, new controllers: (entries made, graphs captured) {sb['leap']}, {sb['cylinder_push']}, on the "
+          f"return {sb['return']} (a cache hit): {'ok' if good else 'FAIL'}", flush=True)
+    pools = graph_pools()
+    if pools is None:
+        print("graph pools: not measured (the allocator's snapshot names no segment pools)", flush=True)
+    for task_name, R, T, dt, nbytes in pools or ():
+        print(f"graph pool {task_name} R={R} T={T} {dt}: {nbytes} bytes on {card}", flush=True)
+
     from judo_tpu_torch.config import set_config_overrides
     from judo_tpu_torch.optimizers import MPPIConfig
 
@@ -1308,6 +1569,11 @@ def main() -> int:
               f"fused_rollout launches {counts['fused_rollout']} (plans + {rep.warmup_plans} warm-up); non-finite states "
               f"{rep.nonfinite_states}; ends with 'shutdown complete': {lp['ended']}: {'ok' if good else 'FAIL'} on "
               f"{card}", flush=True)
+    lp = closed_loop("leap_cube", "mppi", eager_twin=True)
+    rep = lp["report"]
+    print(f"closed loop leap_cube + mppi R={rep.rollouts}, eager twin (the plain solve, no graph; timed only): "
+          f"{rep.plans} plans ({pcts(rep.plan_ms)}), {rep.ticks} ticks of {rep.ticks_due} due ({pcts(rep.tick_ms)}), "
+          f"{rep.overruns} overruns on {card}", flush=True)
     print(f"harness: run_benchmark leap_cube and cylinder_push x mppi and ps, judo_tpu plant, cuda f32, "
           f"{HARNESS_SAMPLES} plans each, on {card}", flush=True)
     for line in harness().splitlines():
@@ -1371,8 +1637,9 @@ def main() -> int:
     for seg in prof["segments"]:
         print(f"  profile {seg['label']}, {seg['calls']} calls: window {seg['window_ms']:.3f} ms, device busy "
               f"{seg['busy_ms']:.3f} ms, busy share {seg['busy']:.4f}, idle share {1 - seg['busy']:.4f}; K1 "
-              f"{seg['k1_events']} events, {seg['k1_ms']:.3f} ms; {seg['kernel_events']} kernel events on {card}",
-              flush=True)
+              f"{seg['k1_events']} events, {seg['k1_ms']:.3f} ms; {seg['kernel_events']} kernel events "
+              f"({seg['kernel_events'] / seg['calls']:.1f} per solve), {seg['device_events']} kernel, copy and set "
+              f"events ({seg['device_events'] / seg['calls']:.1f} per solve) on {card}", flush=True)
 
     for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
                                             ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032),
@@ -1386,8 +1653,9 @@ def main() -> int:
               "fused_policy_rollout": f"spot_navigate R={R_SPOT} T={T_FULL}x2"}
     for name, (ms, plain, bnd, by) in ((k, v) for k, v in t.items() if isinstance(v, tuple) and k[:3] != "k2 "):
         label = f"{name} {shapes[name]}" if name in shapes else name
-        print(f"time {label} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms, bound {bnd:.4g} ms ({by}) on "
-              f"{card}", flush=True)
+        scaled = f" ({FR3_PLAIN_STEPS} steps timed, scaled to 252)" if "fr3" in name else ""
+        print(f"time {label} f32: kernel {ms:.3f} ms, plain PyTorch {plain:.1f} ms{scaled}, bound {bnd:.4g} ms ({by}) "
+              f"on {card}", flush=True)
     print(f"time fused_policy_rollout plain PyTorch per tick: {t['fused_policy_rollout'][1] / T_FULL:.1f} ms",
           flush=True)
     print(f"time fused_policy_rollout f32 with 0 physics substeps (observation, MLP, ctrl): "
@@ -1408,6 +1676,8 @@ def main() -> int:
                                                                       for p in (*plant.values(), *loops.values()))}
     launches["fused_rollout"] += sum(lp["counts"]["fused_rollout"] for lp in loops.values())
     launches["fused_rollout"] += gui["counts"]["fused_rollout"] + prof["counts"]["fused_rollout"]
+    for gp in graphs.values():
+        launches["fused_policy_rollout" if gp is graphs["spot_navigate"] else "fused_rollout"] += gp["launches"]
     launches["physics_step"] += gui["counts"]["physics_step"]
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",

@@ -18,11 +18,20 @@ and normalizer parameters, the time grids and the control bounds stay on the
 card, uploaded again only when their values change. The carried solver state
 chains on the card, so only the published mirrors lag, by ``depth`` solves.
 On the CPU the same code runs without pinned memory or events.
+
+Each solve runs through the solve cache (``Controller._get_solve``), as the
+JAX package's runs through its LRU cache of compiled solves: one entry per
+shape signature, at most 16, shared by the controllers of the process. On the
+card an entry is the solve captured once as a CUDA graph on static buffers
+and replayed on every plan (``solve_graph.py``); on the CPU it runs this
+module's eager ``solve`` on the same buffers. ``solve`` stays the plain
+version the graph is held against.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time as _time
 import warnings
@@ -36,11 +45,12 @@ from scipy.interpolate import interp1d
 
 from judo_tpu_torch.app.structs import MujocoState, SplineData
 from judo_tpu_torch.config import OverridableConfig
+from judo_tpu_torch.controller.solve_graph import SolveGraph, tree_spec
 from judo_tpu_torch.gui import slider
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
 from judo_tpu_torch.optimizers.base import top_k_indices
-from judo_tpu_torch.physics.fused_rollout import rollout_lanes
+from judo_tpu_torch.physics.fused_rollout import pack_model, rollout_lanes
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
 from judo_tpu_torch.tasks import Task, get_registered_tasks
@@ -77,6 +87,22 @@ class SolverState:
     last_policy_output: torch.Tensor | None = None  # (R, 12) with a policy in the loop
 
 
+class SolveInputs(NamedTuple):
+    """What one solve reads besides the carry and the noise: the state and
+    time (staged host tensors, pinned on the card), the parameters, control
+    bounds and time offsets on the device, and the metadata (staged)."""
+
+    current_state: torch.Tensor  # (nq + nv,)
+    time: torch.Tensor  # ()
+    task_params: dict
+    opt_params: Any
+    norm_params: dict
+    metadata: dict
+    spline_ts: torch.Tensor  # (N,)
+    rollout_ts: torch.Tensor  # (T,)
+    ctrl_bounds: tuple[torch.Tensor, torch.Tensor]
+
+
 class SolveOutputs(NamedTuple):
     rewards: torch.Tensor  # (R,)
     states: torch.Tensor | None  # (R, T, nq + nv)
@@ -99,8 +125,12 @@ def solve(
     spline_ts: torch.Tensor,
     rollout_ts: torch.Tensor,
     ctrl_bounds: tuple[torch.Tensor, torch.Tensor],
+    noise: torch.Tensor,
 ) -> tuple[SolverState, SolveOutputs]:
-    """One planning solve (controller.py:361-547 of the JAX package)."""
+    """One planning solve (controller.py:361-547 of the JAX package).
+    ``noise`` (iterations, R - 1, N, nu) holds each optimizer iteration's
+    standard normal draws (``solve_graph.draw_noise``); the carry's
+    generator is not read here."""
     task, optimizer, pm = ctrl.task, ctrl.optimizer, ctrl.pm
     order = ctrl.spline_order
     kind = ctrl.normalizer_kind
@@ -112,8 +142,8 @@ def solve(
     ctrl_lo, ctrl_hi = ctrl_bounds
     efc_warm, last_pout = carry.efc_warm, carry.last_policy_output
     states = sensors = rollout_controls = rewards = candidates = None
-    for _ in range(1 if optimizer.stop_cond() else ctrl.max_opt_iters):
-        cand_n, opt_state = optimizer.sample(opt_params, opt_state, nominal_n, carry.generator)
+    for it in range(1 if optimizer.stop_cond() else ctrl.max_opt_iters):
+        cand_n, opt_state = optimizer.sample_from_noise(opt_params, opt_state, nominal_n, noise[it])
         lo = norm.normalize(kind, norm_params, norm_state, ctrl_lo)
         hi = norm.normalize(kind, norm_params, norm_state, ctrl_hi)
         cand_n = torch.minimum(torch.maximum(cand_n, lo), hi)
@@ -157,6 +187,29 @@ def solve(
     return new_carry, SolveOutputs(rewards, None, None, None, None, None, mirror)
 
 
+def _model_key(m) -> str:
+    """A digest of the packed model the kernels read."""
+    key = m._packed.get("digest")
+    if key is None:
+        pk = pack_model(m)
+        key = m._packed["digest"] = hashlib.sha1(pk["mi"].tobytes() + pk["mf"].tobytes()).hexdigest()
+    return key
+
+
+def _policy_key(policy) -> str | None:
+    """A digest of a locomotion policy's weights."""
+    if policy is None:
+        return None
+    key = policy._packed.get("digest")
+    if key is None:
+        h = hashlib.sha1(str(policy.activations).encode())
+        for lin in policy.layers:
+            h.update(lin.weight.detach().double().cpu().numpy().tobytes())
+            h.update(lin.bias.detach().double().cpu().numpy().tobytes())
+        key = policy._packed["digest"] = h.hexdigest()
+    return key
+
+
 class _InFlight(NamedTuple):
     """A dispatched solve: its carry, outputs and metadata, the host buffer
     its mirror is copied into, and the event that ends that copy (None on the
@@ -174,6 +227,15 @@ class Controller:
     action(t), spline_data, update_states, flush_pipeline, rewards,
     nominal_knots, traces, last_plan_timing), on the task's device and
     dtype."""
+
+    # The solve cache (controller.py:555-570 of the JAX package): at most
+    # _SOLVE_CACHE_MAX entries, least recently used first. It is the
+    # process's, not one controller's: a task or optimizer switch in the GUI
+    # builds a new controller, and switching back finds the entry its first
+    # controller made.
+    _SOLVE_CACHE_MAX = 16
+    _solve_cache: dict[tuple, SolveGraph] = {}
+    _solve_cache_lock = threading.Lock()
 
     def __init__(
         self, controller_config: ControllerConfig, task: Task, optimizer: Optimizer, seed: int | None = None
@@ -267,15 +329,13 @@ class Controller:
         return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
 
     def _stage(self, x) -> torch.Tensor:
-        """Per-solve host values on the device. On the card they go through
-        pinned memory with a copy that does not wait: a copy from pageable
-        memory would wait for every solve queued before it. The pinned
-        block is not reused before its copy ends (PyTorch's host allocator
-        records the copy's stream)."""
+        """A per-solve host value as a host tensor the solve cache's entry
+        copies into its buffer. On the card it is pinned, so that copy does
+        not wait: a copy from pageable memory would wait for every solve
+        queued before it. The pinned block is not reused before its copy ends
+        (PyTorch's host allocator records the copy's stream)."""
         host = torch.as_tensor(np.asarray(x, np.float64), dtype=self.dtype)
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        return host.pin_memory() if self.device.type == "cuda" else host
 
     @staticmethod
     def _fingerprint(cfg: Any) -> tuple:
@@ -320,6 +380,71 @@ class Controller:
             "times", key, lambda: (self._tensor(self.spline_timesteps), self._tensor(self.rollout_times))
         )
 
+    def _signature(self, inputs: SolveInputs) -> tuple:
+        """The shape signature of a solve on ``inputs``, as (name, value)
+        pairs: every value the solve reads as a Python value, which a capture
+        bakes in. The first 17 are the JAX package's ``_signature``
+        (controller.py:283-315; the rollout backend names the port's kernel).
+        The rest it leaves out: the optimizer config's fields that are not
+        tensors of ``opt_params`` (``noise_ramp`` among them, which the JAX
+        cache leaves out although its solve reads it), the normalizer kind,
+        the trace sensors, a ``post_rollout`` override, dtype and device, the
+        task's own values, the packed model and policy, and the keys, shapes
+        and dtypes of the inputs (the metadata's keys among them)."""
+        oc, cc, task = self.optimizer_cfg, self.controller_cfg, self.task
+        extra = tuple(sorted((f, getattr(oc, f)) for f in ("num_elites",) if hasattr(oc, f)))
+        opt_fields = tuple(
+            (f.name, getattr(oc, f.name)) for f in dataclasses.fields(oc) if f.name not in inputs.opt_params
+        )
+        return (
+            ("optimizer", type(self.optimizer).__name__),
+            ("stop_cond", bool(self.optimizer.stop_cond())),
+            ("num_rollouts", oc.num_rollouts),
+            ("num_nodes", oc.num_nodes),
+            ("use_noise_ramp", bool(oc.use_noise_ramp)),
+            ("spline_order", cc.spline_order),
+            ("num_timesteps", self.num_timesteps),
+            ("max_opt_iters", int(cc.max_opt_iters)),
+            ("action_normalizer", cc.action_normalizer),
+            ("num_trace_elites", min(cc.max_num_traces, oc.num_rollouts)),
+            ("rollout_backend", "fused_policy_rollout" if task.uses_locomotion_policy else "fused_rollout"),
+            ("solver_iterations", cc.solver_iterations),
+            ("full_outputs", bool(cc.full_outputs)),
+            ("physics_substeps", int(task.physics_substeps)),
+            ("uses_locomotion_policy", bool(task.uses_locomotion_policy)),
+            ("ctrlrange", hash(np.asarray(task.actuator_ctrlrange).tobytes())),
+            ("extra", extra),
+            ("noise_ramp", float(oc.noise_ramp)),
+            ("optimizer_config", opt_fields),
+            ("optimizer_class", f"{type(self.optimizer).__module__}.{type(self.optimizer).__qualname__}"),
+            ("normalizer_kind", self.normalizer_kind),
+            ("trace_inds", tuple(task.trace_sensor_adr)),
+            ("post_rollout", type(task).post_rollout is not Task.post_rollout),
+            ("dtype", str(self.dtype)),
+            ("device", str(self.device)),
+            ("task", task.solve_key()),
+            ("model", _model_key(self.pm)),
+            ("policy", _policy_key(getattr(task, "policy", None) if task.uses_locomotion_policy else None)),
+            ("inputs", tree_spec(inputs)),
+        )
+
+    def _get_solve(self, inputs: SolveInputs) -> SolveGraph:
+        """The solve cache's entry for the current signature (controller.py:
+        557-570 of the JAX package): a hit refreshes the entry's place in the
+        LRU order; a miss makes a new entry (captured at its first call on the
+        card) and evicts the oldest beyond ``_SOLVE_CACHE_MAX``."""
+        sig = self._signature(inputs)
+        with Controller._solve_cache_lock:
+            cache = Controller._solve_cache
+            entry = cache.get(sig)
+            if entry is None:
+                entry = cache[sig] = SolveGraph(self, self._carry, inputs, solve)
+                while len(cache) > self._SOLVE_CACHE_MAX:
+                    cache.pop(next(iter(cache))).close()
+            else:  # refresh the LRU order
+                cache[sig] = cache.pop(sig)
+        return entry
+
     def _enforce_cubic_min_nodes(self) -> None:
         if self.optimizer_cfg.num_nodes < 4 and self.spline_order == "cubic":
             warnings.warn("Cubic splines require at least 4 nodes. Setting num_nodes=4.", stacklevel=2)
@@ -343,9 +468,11 @@ class Controller:
     # --- main entry points ---
     def update_action(self) -> None:
         """One planning step; per-stage times land in ``last_plan_timing``:
-        prep (host staging), device (the dispatch, which returns before the
-        card has run the solve) and sync (publishing the mirrors; at
-        ``pipeline_depth > 0`` only handing the oldest solve to the consumer).
+        prep (host staging and the solve cache's lookup), device (the
+        dispatch: the entry's copies, noise draws and graph replay, which
+        return before the card has run the solve) and sync (publishing the
+        mirrors; at ``pipeline_depth > 0`` only handing the oldest solve to
+        the consumer).
 
         With ``pipeline_depth > 0`` the call dispatches the new solve first and
         then hands the oldest in-flight solve to the consumer thread once more
@@ -360,16 +487,10 @@ class Controller:
             raise ValueError("Need at least one rollout!")
         self._enforce_cubic_min_nodes()
         self._sync_state_shapes()
-        metadata = self.task.pre_rollout(self.current_state)
-        merged = {**self.system_metadata, **metadata}
-        device_meta = {k: self._stage(v) for k, v in merged.items() if not isinstance(v, str)}
-        task_params, opt_params, norm_params, ctrl_bounds = self._device_params()
-        spline_ts, rollout_ts = self._device_times()
+        merged, inputs = self._solve_inputs()
+        entry = self._get_solve(inputs)
         t1 = _time.perf_counter()
-        self._carry, outputs = solve(
-            self, self._carry, self._stage(self.current_state), self._stage(self.time), task_params, opt_params,
-            norm_params, device_meta, spline_ts, rollout_ts, ctrl_bounds,
-        )
+        self._carry, outputs = entry(self, self._carry, inputs)
         self._pending.append(_InFlight(self._carry, outputs, merged, *self._start_readback(outputs.mirror)))
         t2 = _time.perf_counter()
         depth = max(int(self.controller_cfg.pipeline_depth), 0)
@@ -391,6 +512,18 @@ class Controller:
             "prep_ms": 1e3 * (t1 - t0), "device_ms": 1e3 * (t2 - t1), "sync_ms": 1e3 * (t3 - t2),
             "total_ms": 1e3 * (t3 - t0),
         }
+
+    def _solve_inputs(self) -> tuple[dict, SolveInputs]:
+        """(the task's and the system's metadata, the next solve's inputs):
+        the state, time and metadata staged, the rest kept on the device."""
+        metadata = {**self.system_metadata, **self.task.pre_rollout(self.current_state)}
+        task_params, opt_params, norm_params, ctrl_bounds = self._device_params()
+        spline_ts, rollout_ts = self._device_times()
+        staged = {k: self._stage(v) for k, v in metadata.items() if not isinstance(v, str)}
+        return metadata, SolveInputs(
+            self._stage(self.current_state), self._stage(self.time), task_params, opt_params, norm_params, staged,
+            spline_ts, rollout_ts, ctrl_bounds,
+        )
 
     def _start_readback(self, mirror: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
         """Queue the mirror's copy to the host behind the solve: on the card

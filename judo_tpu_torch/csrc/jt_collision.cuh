@@ -466,6 +466,19 @@ HD void plane_cylinder(const T* x1, const T* m1, const T* x2, const T* m2, const
   }
 }
 
+// Sphere against a sphere (radii s1[0], s2[0]): along the line of centres,
+// +z where the centres coincide.
+template <typename T>
+HD void sphere_sphere(const T* x1, const T* s1, const T* x2, const T* s2, T* dist, T* pos, T* nrm) {
+  T delta[3];
+  for (int k = 0; k < 3; ++k) delta[k] = x2[k] - x1[k];
+  const T dn = tsqrt(tmax(dot3(delta, delta), T(1e-24)));
+  const T ez[3] = {T(0), T(0), T(1)};
+  safe_unit(delta, ez, T(1e-9), nrm);
+  dist[0] = dn - s1[0] - s2[0];
+  for (int k = 0; k < 3; ++k) pos[k] = x1[k] + nrm[k] * (s1[0] + T(0.5) * dist[0]);
+}
+
 // Sphere (radius s1[0]) against a capsule (radius s2[0], half length s2[1]):
 // the closest point of the capsule's segment.
 template <typename T>
@@ -513,7 +526,7 @@ HD void capsule_cylinder(const T* x1, const T* m1, const T* s1, const T* x2, con
 // The contact slots of one pair of kind `kind` (at most 4) into dist, pos
 // and nrm. An unknown code is never computed as some other pair: it stops
 // the kernel. A call, not inlined: the narrowphase and the distance sensors
-// share one copy of the twelve kinds' code.
+// share one copy of the fourteen kinds' code.
 template <typename T>
 HD_NOINLINE void pair_contacts(int kind, const T* x1, const T* m1, const T* s1, const T* x2, const T* m2, const T* s2, T* d,
                       T* pos, T* nrm) {
@@ -530,6 +543,8 @@ HD_NOINLINE void pair_contacts(int kind, const T* x1, const T* m1, const T* s1, 
     case PAIR_PLANE_CYLINDER: plane_cylinder(x1, m1, x2, m2, s2, d, pos, nrm); return;
     case PAIR_SPHERE_CYLINDER: sphere_cylinder(x1, s1, x2, m2, s2, d, pos, nrm); return;
     case PAIR_CAPSULE_CYLINDER: capsule_cylinder(x1, m1, s1, x2, m2, s2, d, pos, nrm); return;
+    case PAIR_SPHERE_SPHERE: sphere_sphere(x1, s1, x2, s2, d, pos, nrm); return;
+    case PAIR_SPHERE_CAPSULE: sphere_capsule(x1, s1, x2, m2, s2, d, pos, nrm); return;
     default:
 #ifdef __CUDA_ARCH__
       __trap();

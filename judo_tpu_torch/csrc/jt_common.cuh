@@ -20,6 +20,10 @@
 #include <stdint.h>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 #endif
 
 #ifdef __CUDACC__
@@ -55,7 +59,8 @@ enum { FREE = 0, BALL = 1, SLIDE = 2, HINGE = 3 };
 enum {
   PAIR_BOX_BOX = 0, PAIR_CAPSULE_BOX = 1, PAIR_PLANE_SPHERE = 2, PAIR_PLANE_CAPSULE = 3, PAIR_PLANE_BOX = 4,
   PAIR_CAPSULE_CAPSULE = 5, PAIR_CYLINDER_CYLINDER = 6, PAIR_CYLINDER_BOX = 7, PAIR_SPHERE_BOX = 8,
-  PAIR_PLANE_CYLINDER = 9, PAIR_SPHERE_CYLINDER = 10, PAIR_CAPSULE_CYLINDER = 11, NUM_PAIR_KINDS = 12
+  PAIR_PLANE_CYLINDER = 9, PAIR_SPHERE_CYLINDER = 10, PAIR_CAPSULE_CYLINDER = 11, PAIR_SPHERE_SPHERE = 12,
+  PAIR_SPHERE_CAPSULE = 13, NUM_PAIR_KINDS = 14
 };
 enum { S_JOINTPOS = 9, S_JOINTVEL = 10, S_FRAMEPOS = 26, S_FRAMEQUAT = 27, S_FRAMEXAXIS = 28,
        S_FRAMEZAXIS = 30 };
@@ -65,7 +70,9 @@ enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
 // body  I: parentid rootid jntadr jntnum
 //       F: pos3 quat4 ipos3 iquat4 mass inertia3 subtree_mass
 // joint I: type qposadr dofadr bodyid actfrclimited
-//       F: pos3 axis3 qpos0 stiffness qpos_spring actfrc_lo actfrc_hi
+//       F: pos3 axis3 qpos0 stiffness qpos_spring actfrc_lo actfrc_hi spring7
+//       (spring7: the joint's qpos_spring entries, zero-padded to 7: a free
+//       joint's position and quaternion, a ball joint's quaternion)
 // dof   I: bodyid parentid          F: damping armature implicit_damping
 // geom  I: bodyid                   F: pos3 quat4
 // site  I: bodyid                   F: pos3 quat4
@@ -86,7 +93,7 @@ enum { OBJ_BODY = 1, OBJ_XBODY = 2, OBJ_SITE = 6 };
 // distance pair I: kind g1 g2 nslot      F: size1_3 size2_3
 // then body_dof_mask (nbody x nv ints); scalars start with the globals
 // timestep gravity3 impratio.
-constexpr int BI = 4, BF = 19, JI = 5, JF = 11, DI = 2, DF = 3, GI = 1, GF = 7, SI = 1, SF = 7;
+constexpr int BI = 4, BF = 19, JI = 5, JF = 18, DI = 2, DF = 3, GI = 1, GF = 7, SI = 1, SF = 7;
 constexpr int AI = 4, AF = 9, NI = 7, LI = 5, LF = 16, PI = 5, PF = 6, CI = 2, CF = 10, II = 2;
 constexpr int XI = 3, XF = 1, QI = 4, QF = 6;
 constexpr int GLOBF = 5;
@@ -304,9 +311,22 @@ __device__ inline T* rollout_smem() {
 
 // Let `kernel` take `bytes` of dynamic shared memory per block: above 48 KB a
 // launch needs this, once for each kernel and each template instantiation.
+// The attribute is set only where a launch needs more than was set before for
+// that kernel on the current device, so a launch recorded into a CUDA graph
+// after a warm-up launch of the same size makes no attribute call.
 template <class K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> allowed;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = allowed[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
 }
 #endif
 

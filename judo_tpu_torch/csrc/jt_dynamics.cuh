@@ -341,15 +341,38 @@ HD void smooth_force(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<const T> 
     if (ai[3]) force = tclip(force, af[7], af[8]);
     w[c.S.tv2 + ai[1]] = w[c.S.tv2 + ai[1]] + g * force;
   }
+  // the per-joint clamp of the actuator force, on every dof of the joint
   for (int j = 0; j < c.s.njnt; ++j) {
     const int* ji = c.jnt_i(j);
-    if (ji[4]) w[c.S.tv2 + ji[2]] = tclip(w[c.S.tv2 + ji[2]], c.jnt_f(j)[9], c.jnt_f(j)[10]);
+    if (!ji[4]) continue;
+    const int ndof = ji[0] == FREE ? 6 : (ji[0] == BALL ? 3 : 1);
+    for (int d = ji[2]; d < ji[2] + ndof; ++d) w[c.S.tv2 + d] = tclip(w[c.S.tv2 + d], c.jnt_f(j)[9], c.jnt_f(j)[10]);
   }
   for (int i = 0; i < nv; ++i) w[c.S.qfrc + i] = -c.dof_f(i)[0] * qvel[i];
+  // joint springs; on a ball joint, and on a free joint's rotation, the
+  // spring turns by 2 Im(conj(qpos_spring) * q) (lane_engine.passive_force_l)
   for (int j = 0; j < c.s.njnt; ++j) {
     const T* jf = c.jnt_f(j);
     const int* ji = c.jnt_i(j);
-    if (jf[7] != T(0)) w[c.S.qfrc + ji[2]] = w[c.S.qfrc + ji[2]] - jf[7] * (qpos[ji[1]] - jf[8]);
+    const T k = jf[7];
+    if (k == T(0)) continue;
+    int qa = ji[1], da = ji[2];
+    if (ji[0] == SLIDE || ji[0] == HINGE) {
+      w[c.S.qfrc + da] = w[c.S.qfrc + da] - k * (qpos[qa] - jf[8]);
+      continue;
+    }
+    const T* sp = jf + 11;
+    if (ji[0] == FREE) {
+      for (int i = 0; i < 3; ++i) w[c.S.qfrc + da + i] = w[c.S.qfrc + da + i] - k * (qpos[qa + i] - sp[i]);
+      qa += 3;
+      da += 3;
+      sp += 3;
+    }
+    const T qs[4] = {sp[0], -sp[1], -sp[2], -sp[3]};
+    const T q[4] = {qpos[qa], qpos[qa + 1], qpos[qa + 2], qpos[qa + 3]};
+    T dq[4];
+    qmul(qs, q, dq);
+    for (int i = 0; i < 3; ++i) w[c.S.qfrc + da + i] = w[c.S.qfrc + da + i] - k * T(2) * dq[1 + i];
   }
   for (int i = 0; i < nv; ++i) w[c.S.qfrc + i] = (w[c.S.tv2 + i] + w[c.S.qfrc + i]) - w[c.S.tv1 + i];
 }

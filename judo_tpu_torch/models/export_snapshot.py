@@ -6,14 +6,16 @@ Run from the repository root where ``mujoco`` is installed:
 
 It lowers each task's MJCF with the port's own ``put_model`` and writes
 ``judo_tpu_torch/models/<task>.npz`` (float64 model, trace sensors, home pose,
-reset command and timestep). Machines without ``mujoco`` build the task's
-model from that file.
+reset command and timestep), and ``judo_tpu_torch/models/check_scene.npz``,
+the kernels' check scene. Machines without ``mujoco`` build the models from
+those files.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from judo_tpu_torch.models import check_scene
 from judo_tpu_torch.tasks import get_registered_tasks
 
 
@@ -22,6 +24,8 @@ def main() -> None:
         path = task_cls.snapshot_path()
         np.savez_compressed(path, **task_cls.snapshot())
         print(f"wrote {path}")
+    np.savez_compressed(check_scene.SNAPSHOT_PATH, **check_scene.snapshot())
+    print(f"wrote {check_scene.SNAPSHOT_PATH}")
 
 
 if __name__ == "__main__":

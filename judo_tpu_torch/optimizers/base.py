@@ -4,10 +4,15 @@
     params()                                     -> hyperparameters as tensors
     init_state(dtype, device)                    -> carried optimizer state
     sample(params, state, nominal, generator)    -> (samples (R, N, nu), state)
+    draw_noise(generator, out)                   -> out filled with standard normal noise
+    sample_from_noise(params, state, nominal, noise) -> (samples (R, N, nu), state)
     update(params, state, samples, rewards)      -> (nominal (N, nu), state)
     pre_optimization(params, state, old_t, new_t) -> state
 
-Sampling draws from an explicit ``torch.Generator``.
+Sampling draws from an explicit ``torch.Generator``. The controller draws
+each optimizer iteration's noise with ``draw_noise`` before the solve runs and
+hands it to ``sample_from_noise`` inside the solve, so a captured solve reads
+the noise from a buffer that the draws fill.
 """
 
 from __future__ import annotations
@@ -72,13 +77,18 @@ class Optimizer(Generic[OptimizerConfigT]):
     def sample_from_noise(self, params: Any, state: Any, nominal: torch.Tensor, noise: torch.Tensor):
         raise NotImplementedError
 
+    def noise_shape(self) -> tuple[int, int, int]:
+        """Shape of one iteration's noise: (R - 1, N, nu)."""
+        return (self.num_rollouts - 1, self.num_nodes, self.nu)
+
+    def draw_noise(self, generator: torch.Generator, out: torch.Tensor) -> torch.Tensor:
+        """Fill ``out`` (R - 1, N, nu) with standard normal noise from ``generator``."""
+        return torch.randn(self.noise_shape(), generator=generator, out=out)
+
     def sample(self, params: Any, state: Any, nominal: torch.Tensor, generator: torch.Generator):
         """Draw standard normal noise (R - 1, N, nu) and sample from it."""
-        noise = torch.randn(
-            (self.num_rollouts - 1, self.num_nodes, self.nu),
-            generator=generator, dtype=nominal.dtype, device=nominal.device,
-        )
-        return self.sample_from_noise(params, state, nominal, noise)
+        noise = torch.empty(self.noise_shape(), dtype=nominal.dtype, device=nominal.device)
+        return self.sample_from_noise(params, state, nominal, self.draw_noise(generator, noise))
 
     def update(self, params: Any, state: Any, samples: torch.Tensor, rewards: torch.Tensor):
         raise NotImplementedError

@@ -23,7 +23,9 @@ and the limit. Inputs and outputs are batch-last, ``(T, n, B)``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +35,8 @@ from judo_tpu_torch.physics.lane_collision import pair_groups, pair_params_np
 from judo_tpu_torch.physics.lane_engine import dof_islands
 from judo_tpu_torch.physics.lane_step import implicit_damping_np, kb_from_solref_np, step_l
 from judo_tpu_torch.physics.model import (
+    BALL,
+    FREE,
     GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
@@ -64,6 +68,8 @@ PAIR_KINDS = {
     (GEOM_PLANE, GEOM_CYLINDER): 9,
     (GEOM_SPHERE, GEOM_CYLINDER): 10,
     (GEOM_CAPSULE, GEOM_CYLINDER): 11,
+    (GEOM_SPHERE, GEOM_SPHERE): 12,
+    (GEOM_SPHERE, GEOM_CAPSULE): 13,
 }
 # Scratch layouts (csrc/jt_common.cuh:make_scratch): the whole scratch in
 # shared memory, or J in a slab of global memory and the rest in shared memory.
@@ -137,6 +143,13 @@ def rollout_lanes_reference(
 # ---------------------------------------------------------------------------
 
 
+def _spring7(m: PhysicsModel, qpos_spring: np.ndarray, j: int) -> list:
+    """Joint j's qpos_spring entries, zero-padded to 7 (the joint record's spring7)."""
+    nq = {FREE: 7, BALL: 4}.get(int(m.jnt_type[j]), 1)
+    adr = m.jnt_qposadr[j]
+    return [*qpos_spring[adr : adr + nq], *([0.0] * (7 - nq))]
+
+
 def pack_model(m: PhysicsModel) -> dict:
     """The model as the kernel reads it: an int32 and a float64 array in the
     record layouts of csrc/jt_common.cuh, plus the counts of a JtSizes."""
@@ -160,7 +173,8 @@ def pack_model(m: PhysicsModel) -> dict:
     for j in range(m.njnt):
         I += [m.jnt_type[j], m.jnt_qposadr[j], m.jnt_dofadr[j], m.jnt_bodyid[j], int(m.jnt_actfrclimited[j])]
     floats_jnt = [
-        [*jp[j], *ja[j], q0[m.jnt_qposadr[j]], stiff[j], qs[m.jnt_qposadr[j]], *afr[j]] for j in range(m.njnt)
+        [*jp[j], *ja[j], q0[m.jnt_qposadr[j]], stiff[j], qs[m.jnt_qposadr[j]], *afr[j], *_spring7(m, qs, j)]
+        for j in range(m.njnt)
     ]
     for d in range(m.nv):
         I += [m.dof_bodyid[d], m.dof_parentid[d]]
@@ -298,14 +312,20 @@ def model_tensors(m: PhysicsModel, dev, dtype) -> tuple:
     return mt
 
 
+_SMEM_LIMITS: dict[int, int] = {}
+
+
 def smem_limit(lib) -> int:
     """The current card's opt-in limit of shared memory per block, in bytes
-    (``lib`` is the CUDA library)."""
-    limit = ctypes.c_int()
-    err = lib.jt_smem_optin(ctypes.byref(limit))
-    if err != 0:
-        raise RuntimeError(f"reading the shared-memory limit failed: {lib.jt_error_string(err).decode()}")
-    return limit.value
+    (``lib`` is the CUDA library), read once per card."""
+    dev = torch.cuda.current_device()
+    if dev not in _SMEM_LIMITS:
+        limit = ctypes.c_int()
+        err = lib.jt_smem_optin(ctypes.byref(limit))
+        if err != 0:
+            raise RuntimeError(f"reading the shared-memory limit failed: {lib.jt_error_string(err).decode()}")
+        _SMEM_LIMITS[dev] = limit.value
+    return _SMEM_LIMITS[dev]
 
 
 def scratch_elems(lib, sizes: JtSizes, layout: str, maxw: int | None = None) -> int:
@@ -393,6 +413,32 @@ def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=Fal
     return oq, ov, os_, of0
 
 
+_tally = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: one more in ``wrapper.launches``,
+    or, while this thread tallies (a solve graph's warm-up and capture), in
+    the tally instead."""
+    tally = getattr(_tally, "counts", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def tallied_launches():
+    """Count this thread's kernel launches into the dict it yields (wrapper ->
+    launches), not into the wrappers' counters. A solve graph tallies its
+    warm-up and its capture: its replays add the captured kernels' launches."""
+    _tally.counts = {}
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = None
+
+
 def fused_rollout(
     m: PhysicsModel,
     qpos: torch.Tensor,  # (nq, B)
@@ -405,7 +451,8 @@ def fused_rollout(
     """The fused rollout, batch-last: -> ((T,nq,B), (T,nv,B), (T,ns_,B), (nefc_,B)).
 
     CUDA tensors launch the kernel (``fused_rollout.launches`` counts each
-    launch); CPU tensors run the plain version. Nothing else is accepted.
+    launch; ``count_launch``: a solve graph's replay adds the launches it
+    captured); CPU tensors run the plain version. Nothing else is accepted.
     """
     _check_inputs(m, qpos, qvel, ctrl, f0)
     if qpos.device.type == "cpu":
@@ -414,7 +461,7 @@ def fused_rollout(
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         out = _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream)
-    fused_rollout.launches += 1
+    count_launch(fused_rollout)
     return out
 
 
@@ -452,7 +499,7 @@ def physics_step(
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         oq, ov, os_, of = _launch(lib, m, qpos, qvel, ctrl[None], f, 1, iterations, stream, cold=True)
-    physics_step.launches += 1
+    count_launch(physics_step)
     return oq[0], ov[0], os_[0], of
 
 

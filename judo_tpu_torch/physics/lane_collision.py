@@ -3,11 +3,10 @@
 (P, ..., B) for the P candidate pairs of one pair type.
 
 Ported pair types: plane-sphere (1 slot), plane-capsule (2), plane-cylinder
-(2), plane-box (4), sphere-cylinder (1), sphere-box (1), capsule-capsule (1),
-capsule-cylinder (1), capsule-box (2), cylinder-cylinder (2), cylinder-box (2)
-and box-box (4): every pair type of the JAX package's lanes narrowphase but
-sphere-sphere and sphere-capsule, which no task's planning model has
-(sphere-capsule is here as the body of sphere-cylinder). Dynamic selections
+(2), plane-box (4), sphere-sphere (1), sphere-capsule (1), sphere-cylinder
+(1), sphere-box (1), capsule-capsule (1), capsule-cylinder (1), capsule-box
+(2), cylinder-cylinder (2), cylinder-box (2) and box-box (4): every pair type
+of the JAX package's lanes narrowphase. Dynamic selections
 (separating axis, deepest points, the face of least gap) are rank or
 first-true one-hots over comparison masks, as in the JAX package.
 """
@@ -233,6 +232,16 @@ def _ez(like):
     ez = torch.zeros_like(like)
     ez[:, 2] = 1.0
     return ez
+
+
+def _k_sphere_sphere(x1, m1, s1, x2, m2, s2):
+    """1-slot sphere-sphere (lane_collision._k_sphere_sphere): along the line
+    of centres, +z where the centres coincide."""
+    delta = x2 - x1
+    dn = torch.sqrt(torch.clamp(le.l_dot3(delta, delta), min=1e-24))
+    n = _safe_unit(delta, _ez(delta))
+    d = dn - s1[:, 0:1] - s2[:, 0:1]
+    return [(d, x1 + n * (s1[:, 0:1] + 0.5 * d)[:, None], n)]
 
 
 def _k_sphere_capsule(x1, m1, s1, x2, m2, s2):
@@ -506,6 +515,8 @@ _L_KERNELS = {
     (GEOM_PLANE, GEOM_CAPSULE): _k_plane_capsule,
     (GEOM_PLANE, GEOM_CYLINDER): _k_plane_cylinder,
     (GEOM_PLANE, GEOM_BOX): _k_plane_box,
+    (GEOM_SPHERE, GEOM_SPHERE): _k_sphere_sphere,
+    (GEOM_SPHERE, GEOM_CAPSULE): _k_sphere_capsule,
     (GEOM_SPHERE, GEOM_CYLINDER): _k_sphere_cylinder,
     (GEOM_SPHERE, GEOM_BOX): _k_sphere_box,
     (GEOM_CAPSULE, GEOM_CAPSULE): _k_capsule_capsule,

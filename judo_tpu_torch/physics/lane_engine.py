@@ -362,7 +362,9 @@ def rne_bias_l(m: PhysicsModel, com: LaneCom, vel: LaneVel, qvel: torch.Tensor) 
 
 
 def passive_force_l(m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
-    """Joint springs (scalar joints) + dof dampers -> (nv, B)."""
+    """Joint springs + dof dampers -> (nv, B) (lane_engine.py:700-732 of the
+    JAX package). A ball joint's spring, and a free joint's on its rotation,
+    turns by 2 Im(conj(qpos_spring) * q)."""
     qfrc = -_col(m.np64("dof_damping"), qvel) * qvel
     stiff = m.np64("jnt_stiffness")
     qspring = m.np64("qpos_spring")
@@ -370,10 +372,18 @@ def passive_force_l(m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor) -> 
         k = float(stiff[j])
         if k == 0.0:
             continue
-        if m.jnt_type[j] not in (SLIDE, HINGE):
-            raise NotImplementedError("stiffness on ball/free joints is not ported")
-        qadr, dadr = m.jnt_qposadr[j], m.jnt_dofadr[j]
-        qfrc[dadr] = qfrc[dadr] - k * (qpos[qadr] - float(qspring[qadr]))
+        jt, qadr, dadr = m.jnt_type[j], m.jnt_qposadr[j], m.jnt_dofadr[j]
+        if jt in (SLIDE, HINGE):
+            qfrc[dadr] = qfrc[dadr] - k * (qpos[qadr] - float(qspring[qadr]))
+            continue
+        if jt == FREE:
+            for i in range(3):
+                qfrc[dadr + i] = qfrc[dadr + i] - k * (qpos[qadr + i] - float(qspring[qadr + i]))
+            qadr, dadr = qadr + 3, dadr + 3
+        qs = [float(x) for x in qspring[qadr : qadr + 4] * np.array([1.0, -1.0, -1.0, -1.0])]
+        dq = l_quat_mul(qs, qpos[qadr : qadr + 4])
+        for i in range(3):
+            qfrc[dadr + i] = qfrc[dadr + i] - k * 2.0 * dq[1 + i]
     return qfrc
 
 
@@ -403,9 +413,9 @@ def actuation_l(m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: t
         out[dadr] = out[dadr] + g * force
     afr = m.np64("jnt_actfrcrange")
     for j in range(m.njnt):
-        if m.jnt_actfrclimited[j]:
-            d = m.jnt_dofadr[j]
-            out[d] = torch.clamp(out[d], float(afr[j, 0]), float(afr[j, 1]))
+        if m.jnt_actfrclimited[j]:  # every dof of the joint (ball: 3, free: 6)
+            for d in range(m.jnt_dofadr[j], m.jnt_dofadr[j] + _NDOF[m.jnt_type[j]]):
+                out[d] = torch.clamp(out[d], float(afr[j, 0]), float(afr[j, 1]))
     return out
 
 

@@ -49,13 +49,14 @@ _DSBL_LIMIT, _DSBL_CONTACT, _DSBL_GRAVITY = 8, 16, 128
 _CONE_PYRAMIDAL = 0
 
 # Pair types with a narrowphase kernel in this port, and their slot counts
-# (judo_tpu/physics/lane_collision.py:_SLOTS_PER_PAIR but for sphere-sphere
-# and sphere-capsule, which no task uses; ROADMAP.md lists them).
+# (judo_tpu/physics/lane_collision.py:_SLOTS_PER_PAIR).
 SLOTS_PER_PAIR = {
     (GEOM_PLANE, GEOM_SPHERE): 1,
     (GEOM_PLANE, GEOM_CAPSULE): 2,
     (GEOM_PLANE, GEOM_CYLINDER): 2,
     (GEOM_PLANE, GEOM_BOX): 4,
+    (GEOM_SPHERE, GEOM_SPHERE): 1,
+    (GEOM_SPHERE, GEOM_CAPSULE): 1,
     (GEOM_SPHERE, GEOM_CYLINDER): 1,
     (GEOM_SPHERE, GEOM_BOX): 1,
     (GEOM_CAPSULE, GEOM_CAPSULE): 1,
@@ -361,12 +362,6 @@ def lane_supported(m: PhysicsModel) -> None:
         bad = sorted({(m.geom_type[a], m.geom_type[b]) for a, b in distance_sensor_pairs(m, i)} - set(SLOTS_PER_PAIR))
         if bad:
             missing.append(f"distance sensor {i} over pair types {bad} (ported: {sorted(SLOTS_PER_PAIR)})")
-    stiff = np.asarray(m.jnt_stiffness, np.float64)
-    for j in range(m.njnt):
-        if m.jnt_type[j] in (FREE, BALL) and stiff[j] != 0.0:
-            missing.append(f"stiffness on ball/free joint {j}")
-        if m.jnt_type[j] in (FREE, BALL) and m.jnt_actfrclimited[j]:
-            missing.append(f"actuator force limit on ball/free joint {j}")
     for u in range(m.nu):
         if m.jnt_type[m.actuator_trnid[u]] not in (SLIDE, HINGE):
             missing.append(f"actuator {u} on a ball/free joint")

@@ -29,6 +29,7 @@ from judo_tpu_torch.physics.fused_rollout import (
     _cuda_lib,
     _sizes,
     choose_layout,
+    count_launch,
     jslab,
     model_tensors,
     pack_model,
@@ -154,7 +155,8 @@ def fused_policy_rollout(
     """The fused policy rollout, batch-last: -> ((T,nq,B), (T,nv,B), (T,ns_,B), (T,12,B)).
 
     CUDA tensors launch the kernel (``fused_policy_rollout.launches`` counts
-    each launch); CPU tensors run the plain version. Nothing else is accepted.
+    each launch, a solve graph's replay the launches it captured); CPU
+    tensors run the plain version. Nothing else is accepted.
     """
     _check_inputs(m, policy, qpos, qvel, pout0, cmds)
     if qpos.device.type == "cpu":
@@ -163,7 +165,7 @@ def fused_policy_rollout(
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         out = _launch(lib, m, policy, qpos, qvel, pout0, cmds, substeps, iterations, stream)
-    fused_policy_rollout.launches += 1
+    count_launch(fused_policy_rollout)
     return out
 
 

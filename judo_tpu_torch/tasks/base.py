@@ -55,6 +55,18 @@ def config_to_params(cfg: Any, dtype: torch.dtype, device: Any) -> dict[str, Any
     return out
 
 
+def _config_flags(cfg: Any) -> tuple:
+    """The bool and str fields of a config dataclass, nested ones included."""
+    out = []
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            out.append((f.name, _config_flags(v)))
+        elif isinstance(v, (bool, str)):
+            out.append((f.name, v))
+    return tuple(out)
+
+
 def trace_sensors_from_mujoco(mj_model) -> list[int]:
     """Framepos sensors whose name contains 'trace' (controller.get_trace_sensor_ids)."""
     import mujoco
@@ -252,16 +264,25 @@ class Task(Generic[ConfigT]):
     # --- device-side pure functions ---
     def on_device(self, name: str, values, like: torch.Tensor) -> torch.Tensor:
         """Host values as a tensor on ``like``'s device and dtype, uploaded
-        again only when they change: a copy from pageable host memory waits
-        for the device's queue, so an upload on every solve would serialize
-        pipelined solves."""
+        once per distinct value: a copy from pageable host memory waits for
+        the device's queue, so an upload on every solve would serialize
+        pipelined solves. Each value's tensor is kept: a captured solve graph
+        reads the one it was captured with, and ``solve_key`` names the
+        values a reward reads."""
         values = np.asarray(values, np.float64)
-        key = (name, like.dtype, like.device)
+        key = (name, like.dtype, like.device, values.shape, values.tobytes())
         held = self._constants.get(key)
-        if held is None or held[0] != values.tobytes():
-            held = (values.tobytes(), torch.as_tensor(values, dtype=like.dtype, device=like.device))
-            self._constants[key] = held
-        return held[1]
+        if held is None:
+            held = self._constants[key] = torch.as_tensor(values, dtype=like.dtype, device=like.device)
+        return held
+
+    def solve_key(self) -> tuple:
+        """The Python values that ``reward`` and ``task_to_sim_ctrl`` read when
+        they run, beyond ``task_params``: the config's bools and strings (which
+        ``task_params`` leaves out) and the task's class. A captured solve bakes
+        them in, so they key the controller's solve cache; a task whose reward
+        reads an attribute of its own adds it."""
+        return (f"{type(self).__module__}.{type(self).__qualname__}", _config_flags(self.config))
 
     def task_params(self) -> dict[str, Any]:
         return config_to_params(self.config, self.dtype, self.device)

@@ -104,6 +104,10 @@ class LeapCube(Task[LeapCubeConfig]):
         rot_cost = params["w_rot"] * 0.5 * torch.square(quat_err).sum(-1).mean(-1)
         return -(pos_cost + rot_cost)
 
+    def solve_key(self) -> tuple:
+        """The reward reads ``goal_pos``."""
+        return (*super().solve_key(), ("goal_pos", np.asarray(self.goal_pos, np.float64).tobytes()))
+
     def optimizer_warm_start(self) -> np.ndarray:
         return self.reset_command.copy()
 

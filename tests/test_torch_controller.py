@@ -2,8 +2,9 @@
 ``Controller`` on its lanes path (``rollout_backend="lanes_xla"``).
 
 Both run in float64 with 8 rollouts, one optimizer iteration and the horizon
-cut to 0.2 s (T = 20). Their random streams differ, so each optimizer's
-``sample`` is replaced by ``sample_from_noise`` on the same numpy noise.
+cut to 0.2 s (T = 20). Their random streams differ, so the port's noise draws
+(``draw_noise``) and the JAX optimizer's ``sample`` are replaced: both sample
+through ``sample_from_noise`` on the same numpy noise.
 Rewards and nominal knots agree within 1e-6.
 """
 
@@ -29,7 +30,7 @@ def _port(noise, state):
     c.optimizer_cfg.num_rollouts = R
     c.controller_cfg.horizon = 0.2
     opt = c.optimizer
-    opt.sample = lambda p, s, nom, g: opt.sample_from_noise(p, s, nom, torch.tensor(noise))
+    opt.draw_noise = lambda g, out: out.copy_(torch.tensor(noise))
     c.current_state = state.copy()
     c.update_action()
     return c

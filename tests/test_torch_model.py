@@ -90,6 +90,15 @@ def test_mujoco_codes_match():
     assert int(mujoco.mjtCone.mjCONE_PYRAMIDAL) == tm._CONE_PYRAMIDAL
 
 
+SPHERE_ELLIPSOID = """
+<mujoco>
+  <worldbody>
+    <body pos="0 0 0.3"><freejoint/><geom type="sphere" size="0.1"/></body>
+    <body pos="0 0 0.6"><freejoint/><geom type="ellipsoid" size="0.1 0.1 0.2"/></body>
+  </worldbody>
+</mujoco>
+"""
+
 TWO_SPHERES = """
 <mujoco>
   <worldbody>
@@ -101,9 +110,10 @@ TWO_SPHERES = """
 
 
 def test_lane_supported_raises_naming_pairs():
-    pm = tm.put_model(mujoco.MjModel.from_xml_string(TWO_SPHERES), dtype=np.float64)
-    with pytest.raises(NotImplementedError, match=r"collision pair types \[\(2, 2\)\]"):
+    pm = tm.put_model(mujoco.MjModel.from_xml_string(SPHERE_ELLIPSOID), dtype=np.float64)
+    with pytest.raises(NotImplementedError, match=r"collision pair types \[\(2, 4\)\]"):
         tm.lane_supported(pm)
+    tm.lane_supported(tm.put_model(mujoco.MjModel.from_xml_string(TWO_SPHERES), dtype=np.float64))
     tm.lane_supported(tm.put_model(_leap_mj(), dtype=np.float64))
     sphere_plane = tm.put_model(mujoco.MjModel.from_xml_string(SPHERE_PLANE), dtype=np.float64)
     assert sphere_plane.cone_pyramidal  # plane pairs and the pyramidal cone are ported

@@ -126,7 +126,7 @@ def _port_solve(name, noise, state):
     cfg.num_rollouts = R
     c.controller_cfg.horizon = 0.08
     opt = c.optimizer
-    opt.sample = lambda p, s, nom, g: opt.sample_from_noise(p, s, nom, torch.tensor(noise))
+    opt.draw_noise = lambda g, out: out.copy_(torch.tensor(noise))
     c.current_state = state.copy()
     c.update_action()
     return c

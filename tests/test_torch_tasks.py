@@ -112,7 +112,7 @@ def _port_solve(name, opt, noise, state):
     c.optimizer_cfg.num_rollouts = R
     c.controller_cfg.horizon = 4 * c.task.dt
     o = c.optimizer
-    o.sample = lambda p, s, nom, g: o.sample_from_noise(p, s, nom, torch.tensor(noise))
+    o.draw_noise = lambda g, out: out.copy_(torch.tensor(noise))
     c.current_state = state.copy()
     c.update_action()
     return c
