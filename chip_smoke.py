@@ -119,7 +119,12 @@ without the final line):
    ticks); K3 at the plant's shape (leap, one environment, the model's own
    solver iterations), the shape of its row in the kernels line, and at 320
    rollouts.
-The last line is {"ok": true, "device": {...}}.
+A failed check is marked FAIL on its line; every phase still runs, and the
+run then ends with one line on stderr naming each failed check with its
+numbers, and exits 1. The depth-2 dispatch checks and the tick beside a
+solve run with Python's cyclic collector paused (``gc_paused``); the ``gc:``
+line counts the run's full collections. The last line is {"ok": true,
+"device": {...}}.
 
 ``python3 chip_smoke.py --gui-client PORT SWITCH_AT`` is the GUI loop's
 client, which the GUI phase starts itself.
@@ -127,6 +132,8 @@ client, which the GUI phase starts itself.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -214,6 +221,39 @@ def card_info() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic collector paused, after one collection, as ``timeit``
+    pauses it. A full collection in a process of this size holds the
+    interpreter for up to a quarter of a second, in whichever thread it
+    starts (a controller's consumer thread too); a check of the host's timing
+    against the card's would read that pause as a wait for the card."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def full_collections() -> list:
+    """From now on, the length in ms of each full collection of Python's
+    cyclic collector, appended to the list returned."""
+    lengths, started = [], [0.0]
+
+    def timer(phase: str, info: dict) -> None:
+        if info["generation"] == 2:
+            if phase == "start":
+                started[0] = time.perf_counter()
+            else:
+                lengths.append(1e3 * (time.perf_counter() - started[0]))
+
+    gc.callbacks.append(timer)
+    return lengths
 
 
 def pcts(ms) -> str:
@@ -836,18 +876,19 @@ def depth_path(task_name: str, R: int, warmup: int, timed: int, eager_twin: bool
         c.controller_cfg.pipeline_depth = depth
         rng = np.random.default_rng(7)
         times, dispatch, early = [], [], 0
-        for k in range(warmup + timed):
-            c.current_state = base + np.r_[np.zeros(c.pm.nq), 0.02 * rng.standard_normal(c.pm.nv)]
-            if k == warmup:
-                reset_counts()
-            t0 = time.perf_counter()
-            c.update_action()
-            if k < warmup:
-                continue
-            times.append(1e3 * (time.perf_counter() - t0))
-            if depth:
-                early += not c._pending[-1].ready.query()
-                dispatch.append(c.last_plan_timing["device_ms"])
+        with gc_paused():
+            for k in range(warmup + timed):
+                c.current_state = base + np.r_[np.zeros(c.pm.nq), 0.02 * rng.standard_normal(c.pm.nv)]
+                if k == warmup:
+                    reset_counts()
+                t0 = time.perf_counter()
+                c.update_action()
+                if k < warmup:
+                    continue
+                times.append(1e3 * (time.perf_counter() - t0))
+                if depth:
+                    early += not c._pending[-1].ready.query()
+                    dispatch.append(c.last_plan_timing["device_ms"])
         out[depth] = {"p50_ms": float(np.percentile(times, 50)), "p95_ms": float(np.percentile(times, 95)),
                       "early": early, "calls": timed, "counts": read_counts()}
         if depth:
@@ -942,13 +983,14 @@ def plant_beside_solve() -> dict:
     sim.step(task.reset_command)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    c.update_action()
-    end.record()
-    t0 = time.perf_counter()
-    sim.step(task.reset_command)
-    tick_host_ms = 1e3 * (time.perf_counter() - t0)
-    solve_ended_first = end.query()
+    with gc_paused():
+        start.record()
+        c.update_action()
+        end.record()
+        t0 = time.perf_counter()
+        sim.step(task.reset_command)
+        tick_host_ms = 1e3 * (time.perf_counter() - t0)
+        solve_ended_first = end.query()
     torch.cuda.synchronize()
     out = {"solve_ms": start.elapsed_time(end), "tick_done_ms": start.elapsed_time(sim.tick_done),
            "tick_host_ms": tick_host_ms, "solve_ended_first": solve_ended_first}
@@ -1386,6 +1428,7 @@ def main() -> int:
         print("torch.cuda.is_available() is False: this run needs a CUDA GPU", file=sys.stderr)
         return 1
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
+    collections = full_collections()
 
     from judo_tpu_torch import _build
 
@@ -1397,13 +1440,17 @@ def main() -> int:
     for line in occupancy_report():
         print(f"  {line}", flush=True)
 
-    errs, ok = {}, True
+    errs, failed = {}, []
+
+    def verdict(label: str, good: bool) -> str:
+        """'ok' or 'FAIL'; a failed check's label is kept for the end of the run."""
+        if not good:
+            failed.append(label)
+        return "ok" if good else "FAIL"
 
     def check(label: str, value: float, limit: float) -> None:
-        nonlocal ok
-        good = value <= limit
-        ok &= good
-        print(f"{label}: max err {value:.3e} limit {limit:.0e} {'ok' if good else 'FAIL'}", flush=True)
+        good = verdict(f"{label} ({value:.3e})", value <= limit)
+        print(f"{label}: max err {value:.3e} limit {limit:.0e} {good}", flush=True)
 
     def check_distance(label: str, name: str, e: dict) -> None:
         if "distance" not in e:
@@ -1503,10 +1550,11 @@ def main() -> int:
             print(f"  sync on the depth-2 dispatch path: {msg}")
         good = d2["early"] == d2["calls"] == d2["counts"][kernel] == d0["counts"][kernel] and d["same"] and d["finite"]
         good &= not d["syncs"]
-        ok &= good
+        label = (f"pipelining {task_name} (early {d2['early']} of {d2['calls']}, launches {d2['counts'][kernel]} and "
+                 f"{d0['counts'][kernel]}, same {d['same']}, finite {d['finite']}, syncs {len(d['syncs'])})")
         print(f"pipelining {task_name}: every depth-2 call launched its kernel and returned before its solve ended, "
               f"the flushed mirrors are finite and equal depth 0's, and nothing on the dispatch path waited for the "
-              f"card: {'ok' if good else 'FAIL'}", flush=True)
+              f"card: {verdict(label, good)}", flush=True)
     plant = {}
     for name in ("f64", "f32"):
         p = plant[name] = plant_path(name)
@@ -1516,32 +1564,34 @@ def main() -> int:
               f"time {pcts(p['host_ms'])} (first tick {p['host_ms'][0]:.3f} ms) on {card}", flush=True)
     b = plant_beside_solve()
     good = not b["solve_ended_first"] and b["tick_done_ms"] < b["solve_ms"]
-    ok &= good
+    label = (f"plant beside a leap solve (solve {b['solve_ms']:.3f} ms, tick {b['tick_done_ms']:.3f} ms, solve "
+             f"ended first {b['solve_ended_first']})")
     print(f"plant beside a leap solve (R={B_MAIN}, depth 2): the solve ended {b['solve_ms']:.3f} ms after its "
           f"dispatch began, the plant tick's kernel {b['tick_done_ms']:.3f} ms after; the tick returned after "
           f"{b['tick_host_ms']:.3f} ms with the solve {'ended' if b['solve_ended_first'] else 'still running'}: "
-          f"{'ok' if good else 'FAIL'} on {card}", flush=True)
+          f"{verdict(label, good)} on {card}", flush=True)
 
     graphs = {}
     for task_name, opt_name, R in GRAPH_TASKS:
         gp = graphs[task_name] = graph_phase(task_name, opt_name, R)
         good = (all(gp["bitwise"]) and gp["tune_captures"] == 0 and gp["ramp_captures"] == 1
                 and gp["launches"] == gp["solves"])
-        ok &= good
+        label = (f"graph {task_name} {opt_name} (bitwise {gp['bitwise']}, captures {gp['tune_captures']} after the "
+                 f"tune and {gp['ramp_captures']} after noise_ramp, launches {gp['launches']} in {gp['solves']} "
+                 f"solves)")
         print(f"graph {task_name} {opt_name} R={gp['R']} T={gp['T']} f32: {gp['solves']} solves through the cache "
               f"bitwise equal to the eager solve in published times, knots, rewards, traces and carry: "
               f"{sum(gp['bitwise'])} of {len(gp['bitwise'])}; captures: {gp['first_captures']} in the first "
               f"{GRAPH_TUNE_AT} solves, {gp['tune_captures']} after the tune of temperature, sigma, a reward weight and "
               f"the horizon, {gp['ramp_captures']} after noise_ramp's change; kernel launches {gp['launches']} in "
-              f"{gp['solves']} solves: {'ok' if good else 'FAIL'}", flush=True)
+              f"{gp['solves']} solves: {verdict(label, good)}", flush=True)
         print(f"  time graph {task_name} {opt_name}: graph {pcts(gp['graph_ms'])}; eager {pcts(gp['eager_ms'])}, "
               f"{GRAPH_TIMED} solves each in turns on {card}", flush=True)
     sb = switch_back()
     good = sb["leap"] == (1, 1) and sb["cylinder_push"] == (1, 1) and sb["return"] == (0, 0)
-    ok &= good
     print(f"graph switch leap_cube R={SWITCH_R['leap_cube']} -> cylinder_push R={SWITCH_R['cylinder_push']} -> "
           f"leap_cube, new controllers: (entries made, graphs captured) {sb['leap']}, {sb['cylinder_push']}, on the "
-          f"return {sb['return']} (a cache hit): {'ok' if good else 'FAIL'}", flush=True)
+          f"return {sb['return']} (a cache hit): {verdict(f'graph switch and back {sb}', good)}", flush=True)
     pools = graph_pools()
     if pools is None:
         print("graph pools: not measured (the allocator's snapshot names no segment pools)", flush=True)
@@ -1560,15 +1610,17 @@ def main() -> int:
         # one rollout per plan (max_opt_iters 1) and one plan to warm up
         good = (counts["physics_step"] == rep.ticks > 0 and counts["fused_rollout"] == rep.plans + rep.warmup_plans
                 and rep.plans > 0 and rep.nonfinite_states == 0 and lp["ended"])
-        ok &= good
+        label = (f"closed loop {task_name} + {opt_name} (K3 {counts['physics_step']} for {rep.ticks} ticks, K1 "
+                 f"{counts['fused_rollout']} for {rep.plans} plans, non-finite states {rep.nonfinite_states}, "
+                 f"ended {lp['ended']})")
         print(f"closed loop {task_name} + {opt_name} R={rep.rollouts} (judo_tpu plant, {LOOP_SECONDS} s): "
               f"{rep.plans} plans ({pcts(rep.plan_ms)}), {rep.ticks} ticks of {rep.ticks_due} due "
               f"({100 * rep.ticks / max(rep.ticks_due, 1):.1f} %; pace limit {PACE_LIMIT:.0%}: "
               f"{'met' if rep.ticks >= PACE_LIMIT * rep.ticks_due else 'not met'}) ({pcts(rep.tick_ms)}), "
               f"{rep.overruns} overruns; physics_step launches {counts['physics_step']} (ticks {rep.ticks}), "
               f"fused_rollout launches {counts['fused_rollout']} (plans + {rep.warmup_plans} warm-up); non-finite states "
-              f"{rep.nonfinite_states}; ends with 'shutdown complete': {lp['ended']}: {'ok' if good else 'FAIL'} on "
-              f"{card}", flush=True)
+              f"{rep.nonfinite_states}; ends with 'shutdown complete': {lp['ended']}: "
+              f"{verdict(label, good)} on {card}", flush=True)
     lp = closed_loop("leap_cube", "mppi", eager_twin=True)
     rep = lp["report"]
     print(f"closed loop leap_cube + mppi R={rep.rollouts}, eager twin (the plain solve, no graph; timed only): "
@@ -1610,8 +1662,6 @@ def main() -> int:
         "GUI address printed": gui["gui_line"],
         "ends with 'shutdown complete'": gui["ended"],
     }
-    good = all(checks.values())
-    ok &= good
     print(f"gui loop leap_cube + mppi R={B_MAIN} -> cylinder_push at {GUI_SWITCH_AT:g} s (judo_tpu plant, --gui, "
           f"{GUI_SECONDS} s): {rep.plans} plans ({pcts(rep.plan_ms)}); {rep.ticks} ticks of {rep.ticks_due} due "
           f"({100 * rep.ticks / max(rep.ticks_due, 1):.1f} %; pace limit {PACE_LIMIT:.0%}: "
@@ -1622,18 +1672,25 @@ def main() -> int:
           f"after the switch; physics_step launches {counts['physics_step']} (ticks {rep.ticks}), fused_rollout "
           f"launches {counts['fused_rollout']} (plans {rep.plans} + 1 warm-up + 1 switch); the no-GUI leap loop's "
           f"plan p50 {np.percentile(no_gui.plan_ms, 50):.3f} ms in this run on {card}", flush=True)
+    detail = (f"{rate:.2f} states/s, {plans_after} plans after the switch, K1 {counts['fused_rollout']} for "
+              f"{rep.plans} plans, K3 {counts['physics_step']} for {rep.ticks} ticks, non-finite states "
+              f"{rep.nonfinite_states}, task {rep.task}, resets {gui['resets']}, {len(cl['errors'])} error frames")
     for name, value in checks.items():
-        print(f"  gui check {name}: {'ok' if value else 'FAIL'}", flush=True)
+        print(f"  gui check {name}: {verdict(f'gui check {name} ({detail})', value)}", flush=True)
+    for message in cl["errors"]:
+        print(f"  gui error frame: {message}", flush=True)
 
     prof = profile_phase()
     good = (prof["kernel_events"] > 0 and prof["k1_events"] == prof["counts"]["fused_rollout"]
             == sum(seg["calls"] for seg in prof["segments"])
             and all(seg["k1_events"] == seg["calls"] for seg in prof["segments"])
             and prof["update_action_regions"] == sum(seg["calls"] for seg in prof["segments"]))
-    ok &= good
+    label = (f"profile (K1 events {prof['k1_events']}, counter {prof['counts']['fused_rollout']}, per segment "
+             f"{[(seg['k1_events'], seg['calls']) for seg in prof['segments']]}, update_action regions "
+             f"{prof['update_action_regions']})")
     print(f"profile (torch.profiler, {prof['trace']}): {prof['kernel_events']} kernel events, K1 events "
           f"{prof['k1_events']} against the launch counter {prof['counts']['fused_rollout']}, "
-          f"{prof['update_action_regions']} update_action regions: {'ok' if good else 'FAIL'} on {card}", flush=True)
+          f"{prof['update_action_regions']} update_action regions: {verdict(label, good)} on {card}", flush=True)
     for seg in prof["segments"]:
         print(f"  profile {seg['label']}, {seg['calls']} calls: window {seg['window_ms']:.3f} ms, device busy "
               f"{seg['busy_ms']:.3f} ms, busy share {seg['busy']:.4f}, idle share {1 - seg['busy']:.4f}; K1 "
@@ -1664,8 +1721,10 @@ def main() -> int:
         ms, tick, bnd, by = t[f"k2 {scene}"]
         print(f"time fused_policy_rollout {scene} R={R_SPOT} T={T_FULL}x2 f32: kernel {ms:.3f} ms, plain PyTorch "
               f"{tick:.1f} ms per tick, bound {bnd:.4f} ms ({by}) on {card}", flush=True)
-    if not ok:  # every phase ran; a check that failed above fails the run
-        print("a check failed: see the lines marked FAIL", file=sys.stderr)
+    print(f"gc: {len(collections)} full collections, {max(collections, default=0.0):.1f} ms the longest, "
+          f"{sum(collections):.1f} ms in all", flush=True)
+    if failed:  # every phase ran; a check that failed above fails the run
+        print(f"{len(failed)} checks failed (their lines are marked FAIL): {'; '.join(failed)}", file=sys.stderr)
         return 1
 
     launches = {"fused_rollout": leap["counts"]["fused_rollout"] + sum(p["counts"]["fused_rollout"]
