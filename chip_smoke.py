@@ -106,6 +106,23 @@ without the final line):
      the Chrome trace must equal its launch counter, and per segment the
      card's busy share (the union of its kernel and copy intervals over the
      segment's window), idle share and kernel launches per solve are printed;
+   - the mesh: make_controller(..., mesh=make_rollout_mesh(devices=[...])) over
+     every visible card, or two shards on cuda:0 where one is visible, float32:
+     leap_cube + mppi (320 rollouts), spot_navigate + mppi and cylinder_push +
+     ps, each beside an unsharded twin: 8 solves (a tune after the third)
+     bitwise equal in published times, knots, rewards, traces and carry, the
+     kernel launched once per shard and optimizer iteration, then 10 timed
+     solves of both in turns (plan p50 and p95, bytes between devices per
+     solve, the entry's graphs and pool bytes); two shards on one card must
+     plan leap within 1.15x the twin's p50 (their kernels overlap); a leap
+     controller of 321 rollouts on a 2-shard mesh must raise ValueError;
+     cli.main(["run", ..., "--mesh", "hybrid"]) for 3 s on leap_cube + mppi
+     must print its "mesh:" line, launch K1 once per shard for each plan and
+     the warm-up and K3 once per tick, and publish finite states (its pace
+     printed, as the other loops'). With two or more cards also leap at 1056
+     rollouts (two waves of K1 on one card) over one card and two, and a mesh
+     of two processes (``--mesh-rank``, NCCL), each bitwise against the
+     unsharded solve; with one card a line says these were not run;
 5. one float64 solve per path, cuda against cpu with shared noise (leap and
    spot with MPPI, cylinder_push with PS, fr3_pick with CEM, spot_box_push
    with MPPI, whose float64 kernel runs with J in global memory);
@@ -127,7 +144,10 @@ line counts the run's full collections. The last line is {"ok": true,
 "device": {...}}.
 
 ``python3 chip_smoke.py --gui-client PORT SWITCH_AT`` is the GUI loop's
-client, which the GUI phase starts itself.
+client, which the GUI phase starts itself; ``--mesh-rank RANK WORLD PORT
+PATH`` is a process of the multi-process mesh, which the mesh phase starts.
+``python3 chip_smoke.py --mesh`` runs the build and the mesh phase alone, on
+every visible card.
 """
 
 from __future__ import annotations
@@ -208,6 +228,16 @@ GRAPH_SOLVES, GRAPH_TUNE_AT, GRAPH_AFTER_RAMP, GRAPH_TIMED = 6, 3, 2, 10
 REWARD_WEIGHT = {"leap_cube": ("w_rot",), "cylinder_push": ("w_cart_position",),
                  "fr3_pick": ("global_weights", "w_upright"), "spot_navigate": ("w_goal",)}
 SWITCH_R = {"leap_cube": 256, "cylinder_push": 40}
+# The mesh phase: (task, optimizer, rollouts; None: the task's default) of each
+# controller sharded over the mesh beside its unsharded twin; the solves
+# compared (the tune after the third) and the timed ones; the plan p50 that two
+# shards on one card may reach against the twin's (1.85x where their kernels
+# ran one after the other); the refused batch; the --mesh hybrid loop's
+# seconds; the two-wave leap batch and the multi-process solves, where two or
+# more cards are visible.
+MESH_TASKS = (("leap_cube", "mppi", B_MAIN), ("spot_navigate", "mppi", None), ("cylinder_push", "ps", None))
+MESH_SOLVES, MESH_TUNE_AT, MESH_TIMED, MESH_OVERLAP_LIMIT = 8, 3, 10, 1.15
+MESH_REFUSED_R, MESH_LOOP_SECONDS, MESH_WAVES_R, MESH_RANK_SOLVES = 321, 3, 1056, 8
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -696,15 +726,16 @@ def eager(c):
     return c
 
 
-def graph_controller(task: str, opt: str, R: int | None, eager_twin: bool = False):
+def graph_controller(task: str, opt: str, R: int | None, eager_twin: bool = False, mesh=None):
     """A float32 controller on the card, seeded (numpy's global state too, for
-    the task's reset); the eager twin with ``eager_twin``."""
+    the task's reset); the eager twin with ``eager_twin``; sharded over
+    ``mesh``, on its lead device, with a mesh."""
     import torch
 
     from judo_tpu_torch.controller import make_controller
 
     np.random.seed(0)
-    c = make_controller(task, opt, device="cuda", dtype=torch.float32, seed=0)
+    c = make_controller(task, opt, dtype=torch.float32, seed=0, mesh=mesh)
     if R:
         c.optimizer_cfg.num_rollouts = R
         c._sync_state_shapes()
@@ -829,13 +860,22 @@ def graph_pools() -> list | None:
         return None
     out = []
     for sig, entry in list(Controller._solve_cache.items()):
-        if entry.graph is None:
+        if not entry.graphs:
             continue
-        pool = tuple(entry.graph.pool())
-        nbytes = sum(seg["total_size"] for seg in snap if tuple(seg["segment_pool_id"]) == pool)
         d = dict(sig)
-        out.append((d["task"][0].rsplit(".", 1)[-1], d["num_rollouts"], d["num_timesteps"], d["dtype"], nbytes))
+        out.append((d["task"][0].rsplit(".", 1)[-1], d["num_rollouts"], d["num_timesteps"], d["dtype"],
+                    entry_pool_bytes(entry, snap)))
     return out
+
+
+def entry_pool_bytes(entry, snap=None) -> int:
+    """The bytes of a cache entry's graphs' private memory pools (a pool
+    shared by several graphs counted once)."""
+    import torch
+
+    snap = torch.cuda.memory_snapshot() if snap is None else snap
+    pools = {tuple(g.pool()) for g in entry.graphs}
+    return sum(seg["total_size"] for seg in snap if tuple(seg["segment_pool_id"]) in pools)
 
 
 def depth_path(task_name: str, R: int, warmup: int, timed: int, eager_twin: bool = False) -> dict:
@@ -998,10 +1038,11 @@ def plant_beside_solve() -> dict:
     return out
 
 
-def closed_loop(task: str, optimizer: str, eager_twin: bool = False) -> dict:
-    """``judo_tpu_torch.cli.main(["run", ...])`` with the judo_tpu plant for
-    LOOP_SECONDS, its output captured and echoed; with ``eager_twin`` the
-    controller node plans with the eager solve."""
+def closed_loop(task: str, optimizer: str, eager_twin: bool = False, extra: tuple = (),
+                seconds: float = LOOP_SECONDS) -> dict:
+    """``judo_tpu_torch.cli.main(["run", ..., *extra])`` with the judo_tpu
+    plant for ``seconds``, its output captured and echoed; with
+    ``eager_twin`` the controller node plans with the eager solve."""
     import contextlib
     import io
 
@@ -1016,14 +1057,14 @@ def closed_loop(task: str, optimizer: str, eager_twin: bool = False) -> dict:
     try:
         with contextlib.redirect_stdout(buf):
             rep = cli.main(["run", "--task", task, "--optimizer", optimizer, "--sim-backend", "judo_tpu", "--seconds",
-                            str(LOOP_SECONDS)])
+                            str(seconds), *extra])
     finally:
         nodes.make_controller = real
     counts = read_counts()
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         print(f"  {line}")
-    return {"report": rep, "counts": counts, "ended": bool(lines) and lines[-1] == "shutdown complete"}
+    return {"report": rep, "counts": counts, "ended": bool(lines) and lines[-1] == "shutdown complete", "lines": lines}
 
 
 def harness() -> str:
@@ -1248,6 +1289,314 @@ def profile_phase() -> dict:
     n_regions = sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == "update_action")
     return {"counts": counts, "k1_events": len(k1), "kernel_events": len(kernels), "segments": segments,
             "update_action_regions": n_regions, "trace": str(prof.trace_path)}
+
+
+def mesh_devices() -> list:
+    """Every visible card, or two shards on cuda:0 where only one is visible."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0", "cuda:0"]
+
+
+def cross_device_bytes(c) -> int:
+    """Bytes one solve of ``c`` moves between devices: each shard off the lead
+    device gets its block of the controls, the start state and the carried
+    warm start (or policy output) and sends back its states, sensors and
+    carry, once per optimizer iteration; under a process group each process
+    also receives the other rows' outputs."""
+    import torch
+
+    from judo_tpu_torch.controller.solve_graph import noise_shape
+    from judo_tpu_torch.parallel.mesh import process_group, same_device
+
+    pm, T = c.pm, c.num_timesteps
+    nu_sim = c.task.task_to_sim_ctrl(torch.zeros((1, T, c.task.nu), dtype=c.dtype, device=c.device)).shape[-1]
+    carry = 12 if c.task.uses_locomotion_policy else c._carry.efc_warm.shape[1]
+    into = pm.nq + pm.nv + T * nu_sim + carry
+    back = T * (pm.nq + pm.nv + pm.nsensordata) + carry
+    off = sum(b for d, b in c.last_shards if not same_device(d, c.device))
+    world, _ = process_group()
+    local = sum(b for _, b in c.last_shards)
+    per_iter = off * (into + back) + (world - 1) * local * back
+    return noise_shape(c)[0] * per_iter * torch.finfo(c.dtype).bits // 8
+
+
+def mesh_states(c, rng, n: int) -> list:
+    """``n`` start states: the task's, with perturbed velocities."""
+    base = np.concatenate([c.task.qpos, np.zeros(c.pm.nv)])
+    return [base + np.r_[np.zeros(c.pm.nq), 0.02 * rng.standard_normal(c.pm.nv)] for _ in range(n)]
+
+
+def timed_in_turns(pairs: list, states: list) -> dict:
+    """Host ms of each (label, controller)'s update_action on each state, in
+    turns, each call ended by a sync of every card."""
+    import torch
+
+    out = {label: [] for label, _ in pairs}
+    for state in states:
+        for label, c in pairs:
+            c.current_state = state.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.update_action()
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            out[label].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def mesh_pair(task: str, opt: str, R: int | None, mesh) -> dict:
+    """A controller sharded over ``mesh`` beside its unsharded twin: solves
+    compared bitwise through a tune, the kernel's launches of the sharded
+    one, then timed solves of both in turns."""
+    import torch
+
+    from judo_tpu_torch.controller import Controller
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout
+
+    s, t = graph_controller(task, opt, R, mesh=mesh), graph_controller(task, opt, R)
+    kernel = fused_policy_rollout if s.task.uses_locomotion_policy else fused_rollout
+    rng = np.random.default_rng(12)
+    out = {"bitwise": [], "launches": 0, "solves": 0, "R": s.optimizer_cfg.num_rollouts, "T": s.num_timesteps}
+    for n, state in enumerate(mesh_states(s, rng, MESH_SOLVES)):
+        if n == MESH_TUNE_AT:
+            for c in (s, t):
+                tune(c, task)
+        s.current_state, t.current_state = state.copy(), state.copy()
+        before = kernel.launches
+        s.update_action()
+        out["launches"] += kernel.launches - before
+        out["solves"] += 1
+        t.update_action()
+        torch.cuda.synchronize()
+        out["bitwise"].append(same_plan(s, t))
+    out.update(timed_in_turns([("sharded_ms", s), ("twin_ms", t)], mesh_states(s, rng, MESH_TIMED)))
+    out["iterations"] = 1 if s.optimizer.stop_cond() else s.max_opt_iters
+    out["shards"], out["bytes"] = s.last_shards, cross_device_bytes(s)
+    entry = Controller._solve_cache[s._signature(s._solve_inputs()[1])]
+    out["graphs"], out["pool_bytes"] = len(entry.graphs), entry_pool_bytes(entry)
+    return out
+
+
+def mesh_refused(mesh) -> str | None:
+    """A leap controller of MESH_REFUSED_R rollouts on ``mesh``: the error
+    its construction raises, or None if it does not."""
+    import torch
+
+    from judo_tpu_torch.controller import Controller, make_controller
+
+    c = make_controller("leap_cube", "mppi", device="cuda", dtype=torch.float32, seed=0)
+    c.optimizer_cfg.num_rollouts = MESH_REFUSED_R
+    try:
+        Controller(c.controller_cfg, c.task, c.optimizer, seed=0, mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def mesh_waves(devices: list) -> dict:
+    """leap_cube + mppi at MESH_WAVES_R rollouts (two waves of K1 on one
+    card) unsharded on cuda:0 and sharded over two cards: bitwise, and timed
+    in turns."""
+    import torch
+
+    from judo_tpu_torch.parallel import make_rollout_mesh
+
+    one = graph_controller("leap_cube", "mppi", MESH_WAVES_R)
+    two = graph_controller("leap_cube", "mppi", MESH_WAVES_R, mesh=make_rollout_mesh(devices=devices[:2]))
+    rng = np.random.default_rng(13)
+    same = []
+    for state in mesh_states(one, rng, 2):
+        for c in (one, two):
+            c.current_state = state.copy()
+            c.update_action()
+        torch.cuda.synchronize()
+        same.append(same_plan(one, two))
+    out = timed_in_turns([("two_ms", two), ("one_ms", one)], mesh_states(one, rng, MESH_TIMED))
+    out.update(bitwise=same, bytes=cross_device_bytes(two))
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, path: str) -> int:
+    """One process of the multi-process mesh: row ``rank`` of a (world, 1)
+    hybrid mesh over cuda:0 .. cuda:world-1, NCCL; leap_cube + mppi at
+    B_MAIN on the same start states as ``mesh_ranks``'s twin. Rank 0 writes
+    each solve's rewards and knots, its plan times and launches to ``path``."""
+    import torch
+
+    from judo_tpu_torch.parallel import initialize_distributed, make_rollout_mesh
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank)
+    mesh = make_rollout_mesh(devices=[f"cuda:{i}" for i in range(world)], hybrid=True, devices_per_host=1)
+    torch.cuda.set_device(mesh.lead)
+    c = graph_controller("leap_cube", "mppi", B_MAIN, mesh=mesh)
+    rewards, knots, ms = [], [], []
+    before = fused_rollout.launches
+    for state in mesh_states(c, np.random.default_rng(14), MESH_RANK_SOLVES):
+        c.current_state = state
+        t0 = time.perf_counter()
+        c.update_action()
+        torch.cuda.synchronize(c.device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        rewards.append(c.rewards.copy())
+        knots.append(np.asarray(c.nominal_knots).copy())
+    if rank == 0:
+        np.savez(path, rewards=np.asarray(rewards), knots=np.asarray(knots), ms=np.asarray(ms),
+                 launches=fused_rollout.launches - before, shards=str(c.last_shards), bytes=cross_device_bytes(c))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_ranks() -> dict:
+    """Two processes (``--mesh-rank``), each a row of the mesh on a card of
+    its own, against an unsharded twin on cuda:0 in this process, bitwise."""
+    import socket
+    import tempfile
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "chiprun_out") as tmp:
+        path = str(Path(tmp) / "rank0.npz")
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r), "2", str(port),
+                                   path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        for proc in procs:
+            try:
+                logs.append(proc.communicate(timeout=600)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs.append(proc.communicate()[0])
+        if any(q.returncode != 0 for q in procs):
+            raise RuntimeError(f"mesh ranks exited {[q.returncode for q in procs]}: {' | '.join(x[-1500:] for x in logs)}")
+        with np.load(path) as z:
+            got = {k: z[k] for k in z.files}
+    twin = graph_controller("leap_cube", "mppi", B_MAIN)
+    same, ms = [], []
+    for k, state in enumerate(mesh_states(twin, np.random.default_rng(14), MESH_RANK_SOLVES)):
+        twin.current_state = state
+        t0 = time.perf_counter()
+        twin.update_action()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        same.append(np.array_equal(twin.rewards, got["rewards"][k]) and np.array_equal(twin.nominal_knots,
+                                                                                     got["knots"][k]))
+    return {"bitwise": same, "ms": got["ms"], "twin_ms": ms, "launches": int(got["launches"]),
+            "shards": str(got["shards"]), "bytes": int(got["bytes"])}
+
+
+def mesh_phase(card: str, verdict) -> dict:
+    """The rollouts split over a mesh of every visible card (two shards on
+    cuda:0 where one is visible): each MESH_TASKS controller against its
+    unsharded twin, the refused batch, and, with two or more cards, the
+    two-wave batch over one card and two and the multi-process mesh. ->
+    the sharded controllers' kernel launches."""
+    import torch
+
+    from judo_tpu_torch.parallel import make_rollout_mesh
+
+    devices = mesh_devices()
+    mesh = make_rollout_mesh(devices=devices)
+    launches = {"fused_rollout": 0, "fused_policy_rollout": 0}
+    ratios = {}
+    for task_name, opt_name, R in MESH_TASKS:
+        m = mesh_pair(task_name, opt_name, R, mesh)
+        kernel = "fused_policy_rollout" if task_name.startswith("spot") else "fused_rollout"
+        launches[kernel] += m["launches"]
+        per_solve = len(m["shards"]) * m["iterations"]
+        good = all(m["bitwise"]) and m["launches"] == per_solve * m["solves"]
+        p50, twin50 = np.percentile(m["sharded_ms"], 50), np.percentile(m["twin_ms"], 50)
+        ratios[task_name] = p50 / twin50
+        label = (f"mesh {task_name} {opt_name} (bitwise {m['bitwise']}, launches {m['launches']} in {m['solves']} "
+                 f"solves of {per_solve})")
+        print(f"mesh {task_name} {opt_name} R={m['R']} T={m['T']} f32 over {mesh.shape} {devices}: shards "
+              f"{m['shards']}; {m['solves']} solves bitwise equal to the unsharded twin in published times, knots, "
+              f"rewards, traces and carry: {sum(m['bitwise'])} of {len(m['bitwise'])}; {kernel} launches "
+              f"{m['launches']} ({m['launches'] / m['solves']:g} per solve, shards x iterations {per_solve}): "
+              f"{verdict(label, good)}", flush=True)
+        print(f"  time mesh {task_name}: sharded {pcts(m['sharded_ms'])}; twin {pcts(m['twin_ms'])}; p50 ratio "
+              f"{ratios[task_name]:.4f}; {MESH_TIMED} solves each in turns; {m['bytes']} bytes between devices per "
+              f"solve; the entry's {m['graphs']} graph(s), pools {m['pool_bytes']} bytes on {card}", flush=True)
+    if len(set(devices)) == 1:
+        ratio = ratios["leap_cube"]
+        print(f"mesh overlap: two leap shards on one card plan in {ratio:.4f}x the twin's p50 (limit "
+              f"{MESH_OVERLAP_LIMIT}; one after the other they take about 1.85x): "
+              f"{verdict(f'mesh overlap ({ratio:.4f}x)', ratio < MESH_OVERLAP_LIMIT)}", flush=True)
+    refused = mesh_refused(make_rollout_mesh(devices=devices[:2]))
+    print(f"mesh refusal: leap_cube R={MESH_REFUSED_R} on a 2-shard mesh raises ValueError: {refused!r}: "
+          f"{verdict('mesh refusal (no ValueError)', refused is not None)}", flush=True)
+    if torch.cuda.device_count() >= 2:
+        w = mesh_waves(devices)
+        label = f"mesh waves (bitwise {w['bitwise']})"
+        print(f"mesh waves leap_cube mppi R={MESH_WAVES_R} f32: two cards {pcts(w['two_ms'])}, one card "
+              f"{pcts(w['one_ms'])}, p50 ratio {np.percentile(w['two_ms'], 50) / np.percentile(w['one_ms'], 50):.4f}; "
+              f"{w['bytes']} bytes between devices per solve; bitwise {w['bitwise']}: "
+              f"{verdict(label, all(w['bitwise']))} on {card}", flush=True)
+        r = mesh_ranks()
+        label = f"mesh ranks (bitwise {r['bitwise']}, K1 launches {r['launches']} in {MESH_RANK_SOLVES} solves)"
+        print(f"mesh ranks: 2 processes (NCCL), leap_cube mppi R={B_MAIN} on a (2, 1) hybrid mesh, rank 0's shards "
+              f"{r['shards']}: {MESH_RANK_SOLVES} solves bitwise equal to the unsharded twin: {sum(r['bitwise'])} of "
+              f"{len(r['bitwise'])}; rank 0 plan {pcts(r['ms'])} (twin {pcts(r['twin_ms'])}), K1 launches "
+              f"{r['launches']}, {r['bytes']} bytes between devices per solve: "
+              f"{verdict(label, all(r['bitwise']) and r['launches'] == MESH_RANK_SOLVES)} on {card}", flush=True)
+    else:
+        print(f"mesh waves and ranks: not run: {torch.cuda.device_count()} card visible; the two-wave batch over two "
+              "cards and the two-process (NCCL) mesh need two or more", flush=True)
+    loop = closed_loop("leap_cube", "mppi", extra=("--mesh", "hybrid"), seconds=MESH_LOOP_SECONDS)
+    rep, counts, n = loop["report"], loop["counts"], torch.cuda.device_count()
+    said = f"mesh: sharding {rep.rollouts} rollouts over {n} devices {{'hosts': 1, 'rollouts': {n}}}"
+    # K1 once per shard for each plan and the warm-up; K3 once per tick
+    good = (counts["physics_step"] == rep.ticks > 0 and counts["fused_rollout"] == n * (rep.plans + rep.warmup_plans)
+            and rep.plans > 0 and rep.nonfinite_states == 0 and loop["ended"] and said in loop["lines"])
+    label = (f"mesh loop (K3 {counts['physics_step']} for {rep.ticks} ticks, K1 {counts['fused_rollout']} for "
+             f"{rep.plans} plans + {rep.warmup_plans} over {n} shards, non-finite states {rep.nonfinite_states}, "
+             f"said {said!r}: {said in loop['lines']}, ended {loop['ended']})")
+    print(f"mesh loop leap_cube + mppi R={rep.rollouts} --mesh hybrid (judo_tpu plant, {MESH_LOOP_SECONDS} s): "
+          f"{rep.plans} plans ({pcts(rep.plan_ms)}), {rep.ticks} ticks of {rep.ticks_due} due "
+          f"({100 * rep.ticks / max(rep.ticks_due, 1):.1f} %; pace limit {PACE_LIMIT:.0%}: "
+          f"{'met' if rep.ticks >= PACE_LIMIT * rep.ticks_due else 'not met'}) ({pcts(rep.tick_ms)}), "
+          f"{rep.overruns} overruns; physics_step launches {counts['physics_step']}, fused_rollout launches "
+          f"{counts['fused_rollout']}; non-finite states {rep.nonfinite_states}; said {said!r}: "
+          f"{verdict(label, good)} on {card}", flush=True)
+    launches["fused_rollout"] += counts["fused_rollout"]
+    launches["physics_step"] = counts["physics_step"]
+    return launches
+
+
+def mesh_only() -> int:
+    """``--mesh``: the build and the mesh phase alone (every visible card)."""
+    import torch
+
+    card = card_info()
+    print(f"card: {card}; {torch.cuda.device_count()} visible", flush=True)
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this run needs a CUDA GPU", file=sys.stderr)
+        return 1
+    from judo_tpu_torch import _build
+    from judo_tpu_torch.config import set_config_overrides
+    from judo_tpu_torch.optimizers import MPPIConfig
+
+    _build.load("cuda")
+    set_config_overrides("leap_cube", MPPIConfig, {"num_rollouts": B_MAIN})
+    failed = []
+
+    def verdict(label: str, good: bool) -> str:
+        if not good:
+            failed.append(label)
+        return "ok" if good else "FAIL"
+
+    print(f"mesh launches {mesh_phase(card, verdict)}", flush=True)
+    if failed:
+        print(f"{len(failed)} checks failed (their lines are marked FAIL): {'; '.join(failed)}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def solve_gpu_vs_cpu(task_name: str, opt_name: str, R: int, horizon: float) -> float:
@@ -1698,6 +2047,8 @@ def main() -> int:
               f"({seg['kernel_events'] / seg['calls']:.1f} per solve), {seg['device_events']} kernel, copy and set "
               f"events ({seg['device_events'] / seg['calls']:.1f} per solve) on {card}", flush=True)
 
+    mesh_launches = mesh_phase(card, verdict)
+
     for task_name, opt_name, R, horizon in (("leap_cube", "mppi", 16, 0.2), ("spot_navigate", "mppi", 4, 0.4),
                                             ("cylinder_push", "ps", 8, 0.2), ("fr3_pick", "cem", 4, 0.032),
                                             ("spot_box_push", "mppi", 4, 0.4)):
@@ -1738,6 +2089,8 @@ def main() -> int:
     for gp in graphs.values():
         launches["fused_policy_rollout" if gp is graphs["spot_navigate"] else "fused_rollout"] += gp["launches"]
     launches["physics_step"] += gui["counts"]["physics_step"]
+    for name, n in mesh_launches.items():
+        launches[name] += n
     rows = [
         ("fused_rollout", "judo_tpu_torch/csrc/fused_rollout.cu", "judo_tpu/physics/pallas_step.py:162",
          max(e["states"] for k, e in errs.items() if k[0] == "fused_rollout" and k[1] == "f32")),
@@ -1762,4 +2115,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gui-client"]:
         sys.exit(gui_client(int(sys.argv[2]), float(sys.argv[3])))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--mesh"]:
+        sys.exit(mesh_only())
     sys.exit(main())

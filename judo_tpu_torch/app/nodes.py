@@ -27,6 +27,7 @@ import numpy as np
 from judo_tpu_torch.app.bus import MessageBus
 from judo_tpu_torch.app.structs import MujocoState, SplineData
 from judo_tpu_torch.controller import Controller, make_controller
+from judo_tpu_torch.parallel.mesh import resolve_mesh
 from judo_tpu_torch.simulation import PolicySimulation, Simulation, get_simulation_backend
 from judo_tpu_torch.tasks import get_registered_tasks
 
@@ -145,18 +146,15 @@ class ControllerNode:
     A task or optimizer switch builds the new controller and runs its first
     solve on a worker thread while the old one keeps planning, then swaps it
     in; ``join_switch()`` waits for the swap. States of another task (a
-    different nq) are skipped. ``mesh`` takes only ``None`` or ``"none"``:
-    the port plans on one GPU."""
+    different nq) are skipped. ``mesh`` (``resolve_mesh``: ``None``,
+    ``"none"``, ``"auto"``, ``"hybrid"`` or a ``RolloutMesh``) shards the
+    rollouts of this controller and of every controller a switch builds."""
 
     def __init__(self, bus: MessageBus, init_task: str, init_optimizer: str, mesh=None, device: Any = "cuda") -> None:
-        if mesh not in (None, "none"):
-            raise NotImplementedError(
-                f"mesh={mesh!r}: the port plans on one GPU; splitting the rollouts over several is ROADMAP "
-                "Queue 1 item 11 (multi-GPU), not ported yet"
-            )
         self.bus = bus
         self.device = device
-        self.controller: Controller = make_controller(init_task, init_optimizer, device=device)
+        self.mesh = resolve_mesh(mesh)
+        self.controller: Controller = make_controller(init_task, init_optimizer, device=device, mesh=self.mesh)
         self._stop = threading.Event()
         self._lock = threading.Lock()
         self._paused = False
@@ -204,7 +202,7 @@ class ControllerNode:
             opt_cls = type(self.controller.optimizer)
             opt_cfg_cls = type(self.controller.optimizer.config)
             cfg_cls = type(self.controller.controller_cfg)
-            device = self.device
+            device, mesh = self.device, self.mesh
 
         def build() -> Controller:
             task = task_cls(device=device)
@@ -212,7 +210,7 @@ class ControllerNode:
             opt_cfg.set_override(name)
             cfg = cfg_cls()
             cfg.set_override(name)
-            c = Controller(cfg, task, opt_cls(opt_cfg, task.nu))
+            c = Controller(cfg, task, opt_cls(opt_cfg, task.nu), mesh=mesh)
             c.update_action()  # the first solve off the control loop
             c.reset()
             return c
@@ -228,11 +226,12 @@ class ControllerNode:
             opt_cls, opt_cfg_cls = entry
             task = self.controller.task
             cfg = self.controller.controller_cfg
+            mesh = self.mesh
 
         def build() -> Controller:
             opt_cfg = opt_cfg_cls()
             opt_cfg.set_override(task.name)
-            c = Controller(cfg, task, opt_cls(opt_cfg, task.nu))
+            c = Controller(cfg, task, opt_cls(opt_cfg, task.nu), mesh=mesh)
             c.update_action()
             c.reset()
             return c

@@ -7,6 +7,7 @@ One process hosts the plant and controller threads:
     python -m judo_tpu_torch.cli benchmark --tasks cartpole --optimizers ps,mppi --sim-backend judo_tpu
     python -m judo_tpu_torch.cli --platform cpu run --task cartpole --optimizer ps --sim-backend judo_tpu
     python -m judo_tpu_torch.cli run --task leap_cube --optimizer mppi --sim-backend judo_tpu --gui --gui-port 8008
+    python -m judo_tpu_torch.cli run --task leap_cube --optimizer mppi --sim-backend judo_tpu --mesh auto
 
 Tasks and controllers run on the card; ``--platform cpu`` runs the plain
 PyTorch versions on the CPU instead. The ``judo_tpu`` plant needs no
@@ -15,7 +16,8 @@ has the JAX package's launch-config keys (``task``, ``optimizer``,
 ``simulation_backend``, ``custom_tasks``, ``custom_optimizers``,
 ``controller_config_overrides``, ``optimizer_config_overrides``). ``--gui``
 serves the browser GUI (``visualizers/server.py``) beside the two loops and
-prints its address.
+prints its address. ``--mesh`` (or the YAML ``mesh`` key) shards the planning
+solve's rollouts over the visible GPUs (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -106,6 +108,12 @@ def _cmd_run(args: argparse.Namespace) -> LoopReport:
     bus = MessageBus()
     sim_node = SimulationNode(bus, args.task, backend=args.sim_backend, device=args.device)
     ctrl_node = ControllerNode(bus, args.task, args.optimizer, mesh=args.mesh, device=args.device)
+    if ctrl_node.mesh is not None:
+        print(
+            f"mesh: sharding {ctrl_node.controller.optimizer_cfg.num_rollouts} rollouts "
+            f"over {ctrl_node.mesh.devices.size} devices {ctrl_node.mesh.shape}",
+            flush=True,
+        )
 
     # the first solve builds and loads the kernel: run it before the paced threads start
     print("warming up: the first solve (on the card it loads, or first builds, the kernels)...", flush=True)
@@ -189,7 +197,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--optimizer", default=RUN_DEFAULTS["optimizer"])
     run.add_argument("--sim-backend", default=RUN_DEFAULTS["sim_backend"],
                      help="mujoco | mujoco_policy (need mujoco) | judo_tpu (the port's own engine)")
-    run.add_argument("--mesh", default=RUN_DEFAULTS["mesh"], help="none only: the port plans on one GPU")
+    run.add_argument(
+        "--mesh",
+        default=RUN_DEFAULTS["mesh"],
+        help="shard the rollout batch over a device mesh: none|auto|hybrid (auto = all visible devices; hybrid = "
+        "(hosts, devices/host) after the torch.distributed bootstrap)",
+    )
     run.add_argument("--config", default="", help="YAML launch config (see judo_tpu_torch/examples/example.yaml)")
     run.add_argument("--seconds", type=float, default=10.0, help="<=0 runs until Ctrl+C")
     run.add_argument("--gui", action="store_true", help="serve the browser GUI: the scene and live-tunable widgets")

@@ -26,6 +26,17 @@ card an entry is the solve captured once as a CUDA graph on static buffers
 and replayed on every plan (``solve_graph.py``); on the CPU it runs this
 module's eager ``solve`` on the same buffers. ``solve`` stays the plain
 version the graph is held against.
+
+With a mesh (``parallel/mesh.py``), each optimizer iteration cuts the rollout
+inputs (the controls, the start state and the carried warm start or policy
+output) into one contiguous block per shard, runs the rollout kernel once per
+shard on the shard's device and a CUDA stream of its own, and gathers the
+outputs back to the lead device in block order (across processes with
+``torch.distributed``). Sampling, the rewards, the update, the normalizer and
+the traces run on the lead device on the whole batch, with the code they use
+unsharded, and each rollout is computed alone (one warp per rollout on the
+card, ``bsum`` in the plain version), so the sharded solve equals the
+unsharded one bitwise.
 """
 
 from __future__ import annotations
@@ -45,11 +56,15 @@ from scipy.interpolate import interp1d
 
 from judo_tpu_torch.app.structs import MujocoState, SplineData
 from judo_tpu_torch.config import OverridableConfig
-from judo_tpu_torch.controller.solve_graph import SolveGraph, tree_spec
+from judo_tpu_torch.controller.solve_graph import SolveGraph, segmenting, tree_spec
 from judo_tpu_torch.gui import slider
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
 from judo_tpu_torch.optimizers.base import top_k_indices
+from judo_tpu_torch.parallel.mesh import (
+    RolloutMesh, all_gather_tensor, broadcast_from_rank0, process_group, ranks_joined, resolve_mesh, rollout_sharding,
+    same_device,
+)
 from judo_tpu_torch.physics.fused_rollout import pack_model, rollout_lanes
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
@@ -152,17 +167,13 @@ def solve(
         sim_controls = task.task_to_sim_ctrl(rollout_controls)
         R = sim_controls.shape[0]
         qpos0, qvel0 = current_state[: pm.nq].expand(R, pm.nq), current_state[pm.nq :].expand(R, pm.nv)
-        iterations = ctrl.controller_cfg.solver_iterations
         if task.uses_locomotion_policy:
             # forces start cold every solve; efc_warm is carried unchanged
-            out = policy_rollout_lanes(
-                pm, task.policy, qpos0, qvel0, sim_controls, carry.last_policy_output, task.physics_substeps,
-                iterations,
+            states, sensors, last_pout = rollout_shards(
+                ctrl, _policy_lanes, (qpos0, qvel0, sim_controls, carry.last_policy_output)
             )
-            states, sensors, last_pout = out.states, out.sensordata, out.final_policy_output
         else:
-            out = rollout_lanes(pm, qpos0, qvel0, sim_controls, task.physics_substeps, iterations, efc_warm)
-            states, sensors, efc_warm = out.states, out.sensordata, out.efc0
+            states, sensors, efc_warm = rollout_shards(ctrl, _lanes, (qpos0, qvel0, sim_controls, efc_warm))
         rewards = task.reward(states, sensors, rollout_controls, task_params, metadata)
         nominal_n, opt_state = optimizer.update(opt_params, opt_state, cand_n, rewards)
         norm_state = norm.update_normalizer(kind, norm_params, norm_state, candidates)
@@ -185,6 +196,86 @@ def solve(
     if ctrl.controller_cfg.full_outputs or type(task).post_rollout is not Task.post_rollout:
         return new_carry, SolveOutputs(rewards, states, sensors, rollout_controls, candidates, traces, mirror)
     return new_carry, SolveOutputs(rewards, None, None, None, None, None, mirror)
+
+
+def _lanes(ctrl: "Controller", qpos0, qvel0, sim_controls, efc_warm) -> tuple:
+    """K1 on one batch: -> (states, sensors, step-0 forces)."""
+    out = rollout_lanes(ctrl.pm, qpos0, qvel0, sim_controls, ctrl.task.physics_substeps,
+                        ctrl.controller_cfg.solver_iterations, efc_warm)
+    return out.states, out.sensordata, out.efc0
+
+
+def _policy_lanes(ctrl: "Controller", qpos0, qvel0, sim_controls, last_policy_output) -> tuple:
+    """K2 on one batch: -> (states, sensors, the last tick's policy output)."""
+    out = policy_rollout_lanes(ctrl.pm, ctrl.task.policy, qpos0, qvel0, sim_controls, last_policy_output,
+                               ctrl.task.physics_substeps, ctrl.controller_cfg.solver_iterations)
+    return out.states, out.sensordata, out.final_policy_output
+
+
+def rollout_shards(ctrl: "Controller", launch, inputs: tuple) -> tuple:
+    """``launch(ctrl, *inputs)`` on the batch-first ``inputs``; with a mesh,
+    once per shard of this process on the shard's block of every input
+    (``Controller.last_shards`` records each shard's device and batch), the
+    outputs gathered on the lead device in block order. A solve graph that
+    cuts its capture at the rollouts sets its own runner for this thread
+    (``solve_graph.SolveCapture``); otherwise the shards run eagerly
+    (``launch_shards``) and are joined on the lead device."""
+    if ctrl.mesh is None:
+        return launch(ctrl, *inputs)
+    runner = getattr(segmenting, "runner", None)
+    blocks = rollout_sharding(ctrl.mesh).blocks(inputs[0].shape[0])
+    ctrl.last_shards = [(str(d), rows.stop - rows.start) for d, rows in blocks]
+    if runner is not None:
+        return runner(ctrl, launch, inputs, blocks)
+    outs = launch_shards(ctrl, launch, [(d, [x[rows] for x in inputs]) for d, rows in blocks])
+    local = [torch.cat([o[k].to(ctrl.device, non_blocking=True).movedim(0, -1) for o in outs], dim=-1)
+             for k in range(len(outs[0]))]
+    return batch_first(local)
+
+
+def batch_first(local: list) -> tuple:
+    """The shards' outputs, joined batch-last on the lead device (this
+    process's rows), as the whole batch's batch-first views: gathered from
+    every process in rank order under a process group. The kernel wrappers
+    return batch-first views of batch-last buffers; the joined outputs have
+    the same layout, so the reductions of the reward sum them in the same
+    order as the outputs of one launch on the whole batch."""
+    world, _ = process_group()
+    if world > 1:
+        local = [all_gather_rows(x, world) for x in local]
+    return tuple(x.movedim(-1, 0) for x in local)
+
+
+def launch_shards(ctrl: "Controller", launch, shards: list) -> list:
+    """``launch`` on each (device, inputs) shard, its inputs copied to its
+    device: on the card each on a CUDA stream of its own that waits for the
+    current streams of its device and of its inputs' and that its device's
+    current stream then waits for, so the shards overlap (also inside a
+    graph capture, where the streams fork from the capturing one and join
+    back). Each shard's stream waits before it allocates, so no block is
+    reused early."""
+    if not any(d.type == "cuda" for d, _ in shards):
+        return [launch(ctrl, *(x.to(d) for x in ins)) for d, ins in shards]
+    outs, joins = [], []
+    for i, (d, ins) in enumerate(shards):
+        current = torch.cuda.current_stream(d)
+        stream = ctrl.shard_stream(i, d)
+        for src in dict.fromkeys([d, *(x.device for x in ins)]):
+            stream.wait_stream(torch.cuda.current_stream(src))
+        with torch.cuda.stream(stream):
+            outs.append(launch(ctrl, *(x.to(d, non_blocking=True) for x in ins)))
+        joins.append((current, stream))
+    for current, stream in joins:
+        current.wait_stream(stream)
+    return outs
+
+
+def all_gather_rows(local: torch.Tensor, world: int) -> torch.Tensor:
+    """Every process's batch-last ``local`` (contiguous), joined along the
+    batch (the last dim) in rank order, on ``local``'s device."""
+    full = local.new_empty((world * local.shape[0], *local.shape[1:]))
+    all_gather_tensor(full, local)
+    return ranks_joined(full, world)
 
 
 def _model_key(m) -> str:
@@ -238,7 +329,8 @@ class Controller:
     _solve_cache_lock = threading.Lock()
 
     def __init__(
-        self, controller_config: ControllerConfig, task: Task, optimizer: Optimizer, seed: int | None = None
+        self, controller_config: ControllerConfig, task: Task, optimizer: Optimizer, seed: int | None = None,
+        mesh: RolloutMesh | None = None,
     ) -> None:
         self._controller_cfg = controller_config
         self.task = task
@@ -248,6 +340,15 @@ class Controller:
         self.device = task.device
         self.dtype = task.dtype
         self.seed = seed
+        self.mesh = mesh  # optional: shard the rollouts over it
+        self.last_shards: list[tuple[str, int]] | None = None  # (device, batch) of each shard of the last solve
+        self._shard_streams: dict[tuple[int, torch.device], torch.cuda.Stream] = {}
+        if mesh is not None and not same_device(self.device, mesh.lead):
+            raise ValueError(
+                f"the task's device {self.device} is not the mesh's lead device {mesh.lead} (the first device of this "
+                "process's row), where the solve runs"
+            )
+        self._check_mesh()
         self.system_metadata: dict[str, Any] = {}
         self.available_optimizers = get_registered_optimizers()
         self.available_tasks = get_registered_tasks()
@@ -324,6 +425,21 @@ class Controller:
         """The published (times, knots, order), for the simulation loop."""
         with self._mirror_lock:
             return SplineData(t=self.times, x=self.nominal_knots, kind=self.spline_order)
+
+    def _check_mesh(self) -> None:
+        """The rollouts must divide over the mesh: each shard takes an equal block."""
+        if self.mesh is None:
+            return
+        R, ndev = self.optimizer_cfg.num_rollouts, self.mesh.devices.size
+        if R % ndev:
+            raise ValueError(f"num_rollouts {R} must divide over the {ndev}-device mesh for the lanes backend")
+
+    def shard_stream(self, i: int, device: torch.device) -> torch.cuda.Stream:
+        """The CUDA stream of shard ``i`` on ``device``, made at its first use."""
+        key = (i, device)
+        if key not in self._shard_streams:
+            self._shard_streams[key] = torch.cuda.Stream(device)
+        return self._shard_streams[key]
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
@@ -422,6 +538,7 @@ class Controller:
             ("post_rollout", type(task).post_rollout is not Task.post_rollout),
             ("dtype", str(self.dtype)),
             ("device", str(self.device)),
+            ("mesh", None if self.mesh is None else (self.mesh.key(), process_group())),
             ("task", task.solve_key()),
             ("model", _model_key(self.pm)),
             ("policy", _policy_key(getattr(task, "policy", None) if task.uses_locomotion_policy else None)),
@@ -486,6 +603,7 @@ class Controller:
         if self.optimizer_cfg.num_rollouts < 1:
             raise ValueError("Need at least one rollout!")
         self._enforce_cubic_min_nodes()
+        self._check_mesh()
         self._sync_state_shapes()
         merged, inputs = self._solve_inputs()
         entry = self._get_solve(inputs)
@@ -614,6 +732,9 @@ class Controller:
         warm = np.tile(self.task.optimizer_warm_start(), (n, 1))
         times0 = self.task.time + self.spline_timesteps
         seed = self.seed if self.seed is not None else int(np.random.randint(0, 2**31 - 1))
+        if self.mesh is not None and process_group()[0] > 1:
+            # every process samples the same candidates: rank 0's seed
+            seed = int(broadcast_from_rank0(torch.tensor([seed], device=self.device)).item())
         self._carry = SolverState(
             times=self._tensor(times0),
             nominal_knots=self._tensor(warm),
@@ -654,15 +775,22 @@ class Controller:
 def make_controller(
     init_task: str,
     init_optimizer: str,
-    device: Any = "cuda",
+    device: Any = None,
     dtype: torch.dtype = torch.float32,
     seed: int | None = None,
+    mesh=None,
 ) -> Controller:
     """A controller from registry names, on ``device`` in ``dtype``. The
-    default device is the card; without a CUDA GPU this raises, and the
-    caller passes ``device="cpu"``. The per-task defaults are registered
+    default device is the card (with a mesh, its lead device); without a
+    CUDA GPU this raises, and the caller passes ``device="cpu"``. ``mesh``
+    takes ``None``/``"none"``, ``"auto"``, ``"hybrid"`` or a ``RolloutMesh``
+    (``resolve_mesh``): the rollouts shard over it, and ``num_rollouts``
+    must divide by its device count. The per-task defaults are registered
     once, when the packages are imported, so a launch config's overrides of
     them stand."""
+    mesh = resolve_mesh(mesh)
+    if device is None:
+        device = "cuda" if mesh is None else mesh.lead
     task_entry = get_registered_tasks().get(init_task)
     opt_entry = get_registered_optimizers().get(init_optimizer)
     if task_entry is None:
@@ -675,4 +803,4 @@ def make_controller(
     opt_cfg.set_override(init_task)
     controller_cfg = ControllerConfig()
     controller_cfg.set_override(init_task)
-    return Controller(controller_cfg, task, opt_cls(opt_cfg, task.nu), seed=seed)
+    return Controller(controller_cfg, task, opt_cls(opt_cfg, task.nu), seed=seed, mesh=mesh)

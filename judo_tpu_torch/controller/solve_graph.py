@@ -31,6 +31,22 @@ buffers, so the carry chains on the card with no trip to the host. A capture
 that fails raises ``SolveCaptureError`` naming the operation; nothing falls
 back to the eager solve.
 
+With a mesh (``parallel/mesh.py``) the solve launches the rollout kernel once
+per shard. Where every shard of this process is on the lead device (two
+shards on one card), the entry is still one graph: inside the capture each
+shard's launch forks onto a stream of its own and joins back, so the shards'
+kernels overlap on the card. Where shards sit on other devices, or other
+processes hold rows of the mesh, one graph cannot hold the solve (a capture is
+bound to one device, and a collective waits outside it), so the capture is cut
+at each optimizer iteration's rollout (``SolveCapture``): the lead device's
+graphs run from sampling to the shards' input blocks and from the gathered
+outputs on; each device that takes part has a graph of its own, in its own
+memory pool, with its shards' launches. Between the replays the inputs are
+copied to the other devices' buffers, the outputs back into the lead device's
+(``non_blocking`` copies, ordered by the streams' events), and gathered from
+every process (``all_gather_single``). The warm-up runs the shards on their
+streams too, on each device.
+
 The cache is shared by the controllers of a process. When another
 controller's solve of the same signature comes, the carry handed to the
 previous one is cloned off the buffers first. The kernels' launch counters
@@ -42,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 import traceback
 import weakref
@@ -50,7 +67,12 @@ from typing import Any, Callable
 
 import torch
 
+from judo_tpu_torch.parallel.mesh import all_gather_tensor, process_group, ranks_joined, same_device
 from judo_tpu_torch.physics.fused_rollout import tallied_launches
+
+# The runner of the sharded rollouts while this thread captures a solve in
+# segments (``SolveCapture``); the solve's ``rollout_shards`` reads it.
+segmenting = threading.local()
 
 # The carried solver state's fields that are tensors (or trees of them); the
 # generator stays with the controller that holds the carry.
@@ -133,10 +155,13 @@ class SolveGraph:
         self.noise = torch.empty(noise_shape(ctrl), dtype=ctrl.dtype, device=self.device)
         self._taken: list = [None] * len(leaves(self.inputs))  # the source tensor each input buffer took last
         self._holder: tuple | None = None  # (the controller, the carry handed to it)
-        self.graph: torch.cuda.CUDAGraph | None = None
+        self.graphs: list[torch.cuda.CUDAGraph] = []  # one, or the segments and shard graphs of a cut capture
+        self.steps: list[Callable] = []  # what one replay runs, in order: graph replays and the copies between
         self.outputs = None  # the graph's own outputs, overwritten by each replay
         self.launches: dict = {}  # kernel wrapper -> its launches in one replay
-        self._held: tuple = ()  # the task, optimizer and trace indices whose tensors the graph reads
+        self.shards: list | None = None  # (device, batch) of each shard, as the capture split the rollouts
+        self._devices: tuple = (self.device,)  # the devices the graphs run on
+        self._held: tuple = ()  # the task, optimizer, trace indices and buffers whose tensors the graphs read
 
     # --- buffers ---
     def _carry_view(self):
@@ -183,7 +208,9 @@ class SolveGraph:
 
     def _capture(self, ctrl) -> None:
         """Warm the solve up on a side stream (outputs dropped, carry buffers
-        untouched), then capture it with the carry's copy-back into a graph."""
+        untouched), then capture it with the carry's copy-back: into one
+        graph, or, where shards run off the lead device or rows in other
+        processes, in segments (``SolveCapture``)."""
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(current)
@@ -191,28 +218,36 @@ class SolveGraph:
             with torch.cuda.stream(stream):
                 self.solve_fn(ctrl, self._carry_view(), *self.inputs, self.noise)
             current.wait_stream(stream)
+        mesh = ctrl.mesh
+        cut = mesh is not None and (
+            process_group()[0] > 1 or any(not same_device(d, self.device) for d in mesh.local_devices())
+        )
         # capture_begin/end, not torch.cuda.graph: its entry synchronizes the
         # card and empties the device and pinned-host caches, which would make
         # the plant's next tick allocate anew and wait behind in-flight solves
-        graph = torch.cuda.CUDAGraph()
+        capture = SolveCapture(self.device, cut)
         try:
             with tallied_launches() as launches, torch.cuda.stream(stream):
-                graph.capture_begin(capture_error_mode="thread_local")
+                capture.begin()
+                segmenting.runner = capture if cut else None
                 try:
                     outputs = self._step(ctrl)
                 except BaseException:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()
+                    capture.abort()
                     raise
-                graph.capture_end()
+                finally:
+                    segmenting.runner = None
+                capture.end()
         except Exception as e:
             raise SolveCaptureError(
                 f"capturing the planning solve as a CUDA graph failed at {_where(e)}: {e}. Inside the solve no "
                 "operation may read a tensor on the host, wait for the card or allocate outside the graph's memory "
                 "pool; the solve does not fall back to running eagerly"
             ) from e
-        self.graph, self.outputs, self.launches = graph, outputs, dict(launches)
-        self._held = (ctrl.task, ctrl.optimizer, ctrl.trace_inds)
+        self.graphs, self.steps, self.outputs, self.launches = capture.graphs, capture.steps, outputs, dict(launches)
+        self.shards = ctrl.last_shards
+        self._devices = tuple(dict.fromkeys([self.device, *(mesh.local_devices() if mesh is not None else ())]))
+        self._held = (ctrl.task, ctrl.optimizer, ctrl.trace_inds, capture.held)
         SolveGraph.captures += 1
 
     def __call__(self, ctrl, carry, inputs) -> tuple[Any, Any]:
@@ -223,11 +258,13 @@ class SolveGraph:
             self._copy_inputs(inputs)
             draw_noise(ctrl, carry.generator, self.noise)
             if self.device.type == "cuda":
-                if self.graph is None:
+                if not self.steps:
                     self._capture(ctrl)
-                self.graph.replay()
+                for step in self.steps:
+                    step()
                 for wrapper, n in self.launches.items():
                     wrapper.launches += n
+                ctrl.last_shards = self.shards
                 outputs = self.outputs
             else:
                 outputs = self._step(ctrl)
@@ -237,9 +274,127 @@ class SolveGraph:
             return handed, outputs
 
     def close(self) -> None:
-        """Free the graph once the card has run every replay queued on it."""
+        """Free the graphs once the cards have run every replay queued on them."""
         with self.lock:
-            if self.graph is not None:
-                torch.cuda.synchronize(self.device)
-                self.graph.reset()
-                self.graph = self.outputs = None
+            if self.graphs:
+                for d in self._devices:
+                    torch.cuda.synchronize(d)
+                for graph in self.graphs:
+                    graph.reset()
+                self.graphs, self.steps, self.outputs = [], [], None
+
+
+class SolveCapture:
+    """A solve captured as graphs on the ``lead`` device, the lead's capture
+    running on the current stream. Without ``cut`` it is one graph (with a
+    mesh, every shard on the lead device: ``rollout_shards`` forks them onto
+    streams inside it). With ``cut``, as this thread's ``segmenting.runner``, it cuts
+    the capture at each rollout: the lead graph so far ends after the shards'
+    input blocks; each device of the shards captures its launches in a graph
+    of its own (own pool, own stream); between the replays the inputs go to
+    the other devices, and the outputs come back into batch-last buffers on
+    the lead and are gathered from every process; a new lead graph, in the
+    lead graphs' shared pool, starts with the gathered outputs. ``steps``
+    replays the whole in order."""
+
+    def __init__(self, lead: torch.device, cut: bool) -> None:
+        self.lead = lead
+        self.pool = torch.cuda.graph_pool_handle() if cut else None
+        self.graphs: list[torch.cuda.CUDAGraph] = []
+        self.steps: list[Callable] = []
+        self.held: list = []  # the blocks, buffers and shard outputs the steps read
+        self.graph: torch.cuda.CUDAGraph | None = None
+
+    def begin(self) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        graph, self.graph = self.graph, None
+        graph.capture_end()
+        self.graphs.append(graph)
+        self.steps.append(graph.replay)
+
+    def abort(self) -> None:
+        if self.graph is not None:
+            with contextlib.suppress(Exception):
+                self.graph.capture_end()
+            self.graph = None
+
+    def __call__(self, ctrl, launch, inputs: tuple, blocks: list) -> tuple:
+        """``rollout_shards`` at a cut: -> the gathered outputs, batch-first
+        views of buffers the next lead graph reads."""
+        from judo_tpu_torch.controller.controller import launch_shards
+
+        lead = self.lead
+        parts = [[x[rows].contiguous() for x in inputs] for _, rows in blocks]
+        self.end()
+        outs: list = [None] * len(blocks)
+        streams: dict = {}
+        for dev in dict.fromkeys(d for d, _ in blocks):
+            idx = [i for i, (d, _) in enumerate(blocks) if d == dev]
+            stream = streams[dev] = torch.cuda.Stream(dev)
+            if same_device(dev, lead):
+                ins = {i: parts[i] for i in idx}
+                pairs = []
+            else:
+                ins = {i: [torch.empty(p.shape, dtype=p.dtype, device=dev) for p in parts[i]] for i in idx}
+                pairs = [(ins[i], parts[i]) for i in idx]
+            self.steps.append(functools.partial(_copy_in, lead, stream, pairs))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    shard_outs = launch_shards(ctrl, launch, [(dev, ins[i]) for i in idx])
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            self.graphs.append(graph)
+            self.steps.append(functools.partial(_replay_on, graph, stream))
+            for i, o in zip(idx, shard_outs):
+                outs[i] = [y.movedim(0, -1) for y in o]
+        b = blocks[0][1].stop - blocks[0][1].start
+        local = [torch.empty((*y.shape[:-1], b * len(blocks)), dtype=y.dtype, device=lead) for y in outs[0]]
+        world, _ = process_group()
+        full = ([torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=lead) for x in local]
+                if world > 1 else None)
+        self.steps.append(functools.partial(_join, lead, [(streams[d], o) for (d, _), o in zip(blocks, outs)], b,
+                                            local, full))
+        self.held.append((parts, ins, outs, local, full))
+        self.begin()
+        if full is None:
+            return tuple(x.movedim(-1, 0) for x in local)
+        return tuple(ranks_joined(f, world).movedim(-1, 0) for f in full)
+
+
+def _copy_in(lead: torch.device, stream: torch.cuda.Stream, pairs: list) -> None:
+    """``stream`` waits for the lead's current stream; then each (buffers,
+    sources) pair's sources are copied into its buffers on ``stream``'s
+    device, ``stream`` waiting for the copies."""
+    stream.wait_stream(torch.cuda.current_stream(lead))
+    with torch.cuda.stream(stream):
+        for dsts, srcs in pairs:
+            for dst, src in zip(dsts, srcs):
+                dst.copy_(src, non_blocking=True)
+
+
+def _replay_on(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream) -> None:
+    with torch.cuda.stream(stream):
+        graph.replay()
+
+
+def _join(lead: torch.device, shards: list, b: int, local: list, full: list | None) -> None:
+    """Each shard's batch-last outputs into its columns of the lead's
+    buffers, copied on the shard's stream, which the lead's current stream
+    then waits for; then every process's buffers gathered into ``full``."""
+    current = torch.cuda.current_stream(lead)
+    for i, (stream, outs) in enumerate(shards):
+        cols = slice(i * b, (i + 1) * b)
+        with torch.cuda.stream(stream):
+            for dst, src in zip(local, outs):
+                dst[..., cols].copy_(src, non_blocking=True)
+        current.wait_stream(stream)
+    for f, x in zip(full or (), local):
+        all_gather_tensor(f, x)

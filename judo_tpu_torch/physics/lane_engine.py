@@ -19,6 +19,17 @@ from judo_tpu_torch.physics.model import BALL, FREE, HINGE, SLIDE, PhysicsModel
 _MINVAL = 1e-15
 
 
+def bsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` of a batch-last tensor, each rollout's sum taken in
+    an order that does not depend on the batch width. ``torch.sum`` over a
+    dimension other than the last reduces the batch columns together, in an
+    order that changes with the width (and at a width of 1 reduces along the
+    contiguous dimension instead), so a rollout would round differently in a
+    shard of the batch than in the whole; here every column is one
+    contiguous inner sum, as the kernel's one warp per rollout is."""
+    return torch.sum(x.movedim(dim, -1).contiguous(), dim=-1)
+
+
 def l_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross product along the 3-axis (-2) of (..., 3, B) tensors."""
     a0, a1, a2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
@@ -216,7 +227,7 @@ def com_l(m: PhysicsModel, kin: LaneKin) -> LaneCom:
         )
         cxT = cx.transpose(0, 1)
         mb = float(mass[b])
-        tl = iw + mb * torch.einsum("ikb,kjb->ijb", cx, cxT)
+        tl = iw + mb * bsum(cx[:, :, None] * cxT[None], 1)
         top = torch.cat([tl, mb * cx], dim=1)
         bot = torch.cat([mb * cxT, mb * eye3.expand(3, 3, B)], dim=1)
         cinert.append(torch.cat([top, bot], dim=0))
@@ -261,7 +272,7 @@ def dof_ancestors(m: PhysicsModel) -> list:
 
 
 def _mv6(i66: torch.Tensor, v6: torch.Tensor) -> torch.Tensor:
-    return torch.sum(i66 * v6[None], dim=1)
+    return bsum(i66 * v6[None], 1)
 
 
 def crb_mass_matrix_l(m: PhysicsModel, com: LaneCom) -> torch.Tensor:
@@ -276,7 +287,7 @@ def crb_mass_matrix_l(m: PhysicsModel, com: LaneCom) -> torch.Tensor:
     for i, anc in enumerate(dof_ancestors(m)):
         f_i = _mv6(crb[m.dof_bodyid[i]], com.cdof[i])
         for j in anc:
-            mij = torch.sum(f_i * com.cdof[j], dim=0)
+            mij = bsum(f_i * com.cdof[j], 0)
             if i == j:
                 mij = mij + float(armature[i])
             M[i, j] = mij
@@ -353,7 +364,7 @@ def rne_bias_l(m: PhysicsModel, com: LaneCom, vel: LaneVel, qvel: torch.Tensor) 
     for b in range(m.nbody - 1, 0, -1):
         p = m.body_parentid[b]
         cfrc[p] = cfrc[p] + cfrc[b]
-    return torch.stack([torch.sum(com.cdof[i] * cfrc[m.dof_bodyid[i]], dim=0) for i in range(m.nv)])
+    return torch.stack([bsum(com.cdof[i] * cfrc[m.dof_bodyid[i]], 0) for i in range(m.nv)])
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +482,7 @@ def spd_inverse_blocks(m: PhysicsModel, a: torch.Tensor) -> list:
 
 def mat_vec_l(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(n, n, B) @ (n, B) -> (n, B)."""
-    return torch.sum(a * v[None], dim=1)
+    return bsum(a * v[None], 1)
 
 
 def bd_mat_vec(blocks: list, v: torch.Tensor) -> torch.Tensor:

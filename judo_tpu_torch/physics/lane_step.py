@@ -198,7 +198,7 @@ def assemble_constraints_l(
         active = (contacts.dist < margin_c).to(dtype)
 
         def vel(row):
-            return torch.sum(row * qvel[None], dim=1)
+            return le.bsum(row * qvel[None], 1)
 
         if m.cone_pyramidal:
             mu = col(contacts.friction)[:, :, None]
@@ -235,12 +235,12 @@ def assemble_constraints_l(
 
 def jt_vec(J: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """J^T f: (nefc, nv, B), (nefc, B) -> (nv, B)."""
-    return torch.sum(J * f[:, None], dim=0)
+    return le.bsum(J * f[:, None], 0)
 
 
 def j_vec(J: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """J v: (nefc, nv, B), (nv, B) -> (nefc, B)."""
-    return torch.sum(J * v[None], dim=1)
+    return le.bsum(J * v[None], 1)
 
 
 def solve_dual_qp_l(
@@ -303,7 +303,7 @@ def solve_dual_qp_l(
         return j_vec(aJ, le.bd_mat_vec(a_blocks, jt_vec(aJ, v))) + reg * v
 
     def unit(x):
-        return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=0), min=_MINVAL))[None]
+        return x * torch.rsqrt(torch.clamp(le.bsum(x * x, 0), min=_MINVAL))[None]
 
     if cw_v is None:
         v = torch.ones_like(b)
@@ -324,7 +324,7 @@ def solve_dual_qp_l(
         f_new = project(y - step[None] * grad)
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         y_new = f_new + ((t - 1.0) / t_new)[None] * (f_new - f)
-        restart = torch.sum(grad * (f_new - f), dim=0) > 0
+        restart = le.bsum(grad * (f_new - f), 0) > 0
         y = torch.where(restart[None], f_new, y_new)
         t = torch.where(restart, torch.ones_like(t_new), t_new)
         f = f_new

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from judo_tpu_torch.physics.lane_engine import l_quat_rotate
+from judo_tpu_torch.physics.lane_engine import bsum, l_quat_rotate
 from judo_tpu_torch.physics.lane_step import step_l
 from judo_tpu_torch.physics.model import PhysicsModel, resolve_device
 from judo_tpu_torch.tasks.spot import spot_constants as sc
@@ -77,9 +77,11 @@ def policy_from_numpy(weights, activations) -> SpotPolicy:
 
 
 def mlp_l(policy: SpotPolicy, x: torch.Tensor) -> torch.Tensor:
-    """The MLP on (in, B) columns, in x's dtype (the float32 weights widen exactly)."""
+    """The MLP on (in, B) columns, in x's dtype (the float32 weights widen
+    exactly); each column's products summed as ``bsum`` sums, so that a
+    rollout's output does not depend on the batch width."""
     for lin, act in zip(policy.layers, policy.activations):
-        x = activate(act, lin.weight.to(x.dtype) @ x + lin.bias.to(x.dtype)[:, None])
+        x = activate(act, bsum(lin.weight.to(x.dtype)[:, :, None] * x[None], 1) + lin.bias.to(x.dtype)[:, None])
     return x
 
 
