@@ -27,16 +27,13 @@ and replayed on every plan (``solve_graph.py``); on the CPU it runs this
 module's eager ``solve`` on the same buffers. ``solve`` stays the plain
 version the graph is held against.
 
-With a mesh (``parallel/mesh.py``), each optimizer iteration cuts the rollout
-inputs (the controls, the start state and the carried warm start or policy
-output) into one contiguous block per shard, runs the rollout kernel once per
-shard on the shard's device and a CUDA stream of its own, and gathers the
-outputs back to the lead device in block order (across processes with
-``torch.distributed``). Sampling, the rewards, the update, the normalizer and
-the traces run on the lead device on the whole batch, with the code they use
-unsharded, and each rollout is computed alone (one warp per rollout on the
-card, ``bsum`` in the plain version), so the sharded solve equals the
-unsharded one bitwise.
+With a mesh (``parallel/mesh.py``), each optimizer iteration runs the rollout
+kernel once per shard on the shard's block of the batch and gathers the
+outputs back to the lead device in block order (``parallel/shards.py``).
+Sampling, the rewards, the update, the normalizer and the traces run on the
+lead device on the whole batch, with the code they use unsharded, and each
+rollout is computed alone (one warp per rollout on the card, ``bsum`` in the
+plain version), so the sharded solve equals the unsharded one bitwise.
 """
 
 from __future__ import annotations
@@ -48,7 +45,7 @@ import time as _time
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
-from typing import Any, Literal, NamedTuple
+from typing import Any, Callable, Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -56,15 +53,13 @@ from scipy.interpolate import interp1d
 
 from judo_tpu_torch.app.structs import MujocoState, SplineData
 from judo_tpu_torch.config import OverridableConfig
-from judo_tpu_torch.controller.solve_graph import SolveGraph, segmenting, tree_spec
+from judo_tpu_torch.controller.solve_graph import SolveGraph, tree_spec
 from judo_tpu_torch.gui import slider
 from judo_tpu_torch.ops.splines import eval_spline
 from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered_optimizers
 from judo_tpu_torch.optimizers.base import top_k_indices
-from judo_tpu_torch.parallel.mesh import (
-    RolloutMesh, all_gather_tensor, broadcast_from_rank0, process_group, ranks_joined, resolve_mesh, rollout_sharding,
-    same_device,
-)
+from judo_tpu_torch.parallel.mesh import RolloutMesh, broadcast_from_rank0, process_group, resolve_mesh, same_device
+from judo_tpu_torch.parallel.shards import run_rollouts
 from judo_tpu_torch.physics.fused_rollout import pack_model, rollout_lanes
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
@@ -141,11 +136,14 @@ def solve(
     rollout_ts: torch.Tensor,
     ctrl_bounds: tuple[torch.Tensor, torch.Tensor],
     noise: torch.Tensor,
+    rollouts: Callable = run_rollouts,
 ) -> tuple[SolverState, SolveOutputs]:
     """One planning solve (controller.py:361-547 of the JAX package).
     ``noise`` (iterations, R - 1, N, nu) holds each optimizer iteration's
     standard normal draws (``solve_graph.draw_noise``); the carry's
-    generator is not read here."""
+    generator is not read here. ``rollouts(ctrl, launch, inputs)`` runs each
+    iteration's rollouts: ``run_rollouts`` (over the shards of a mesh), or a
+    solve graph's cut capture (``solve_graph.SolveCapture``)."""
     task, optimizer, pm = ctrl.task, ctrl.optimizer, ctrl.pm
     order = ctrl.spline_order
     kind = ctrl.normalizer_kind
@@ -169,11 +167,11 @@ def solve(
         qpos0, qvel0 = current_state[: pm.nq].expand(R, pm.nq), current_state[pm.nq :].expand(R, pm.nv)
         if task.uses_locomotion_policy:
             # forces start cold every solve; efc_warm is carried unchanged
-            states, sensors, last_pout = rollout_shards(
+            states, sensors, last_pout = rollouts(
                 ctrl, _policy_lanes, (qpos0, qvel0, sim_controls, carry.last_policy_output)
             )
         else:
-            states, sensors, efc_warm = rollout_shards(ctrl, _lanes, (qpos0, qvel0, sim_controls, efc_warm))
+            states, sensors, efc_warm = rollouts(ctrl, _lanes, (qpos0, qvel0, sim_controls, efc_warm))
         rewards = task.reward(states, sensors, rollout_controls, task_params, metadata)
         nominal_n, opt_state = optimizer.update(opt_params, opt_state, cand_n, rewards)
         norm_state = norm.update_normalizer(kind, norm_params, norm_state, candidates)
@@ -210,72 +208,6 @@ def _policy_lanes(ctrl: "Controller", qpos0, qvel0, sim_controls, last_policy_ou
     out = policy_rollout_lanes(ctrl.pm, ctrl.task.policy, qpos0, qvel0, sim_controls, last_policy_output,
                                ctrl.task.physics_substeps, ctrl.controller_cfg.solver_iterations)
     return out.states, out.sensordata, out.final_policy_output
-
-
-def rollout_shards(ctrl: "Controller", launch, inputs: tuple) -> tuple:
-    """``launch(ctrl, *inputs)`` on the batch-first ``inputs``; with a mesh,
-    once per shard of this process on the shard's block of every input
-    (``Controller.last_shards`` records each shard's device and batch), the
-    outputs gathered on the lead device in block order. A solve graph that
-    cuts its capture at the rollouts sets its own runner for this thread
-    (``solve_graph.SolveCapture``); otherwise the shards run eagerly
-    (``launch_shards``) and are joined on the lead device."""
-    if ctrl.mesh is None:
-        return launch(ctrl, *inputs)
-    runner = getattr(segmenting, "runner", None)
-    blocks = rollout_sharding(ctrl.mesh).blocks(inputs[0].shape[0])
-    ctrl.last_shards = [(str(d), rows.stop - rows.start) for d, rows in blocks]
-    if runner is not None:
-        return runner(ctrl, launch, inputs, blocks)
-    outs = launch_shards(ctrl, launch, [(d, [x[rows] for x in inputs]) for d, rows in blocks])
-    local = [torch.cat([o[k].to(ctrl.device, non_blocking=True).movedim(0, -1) for o in outs], dim=-1)
-             for k in range(len(outs[0]))]
-    return batch_first(local)
-
-
-def batch_first(local: list) -> tuple:
-    """The shards' outputs, joined batch-last on the lead device (this
-    process's rows), as the whole batch's batch-first views: gathered from
-    every process in rank order under a process group. The kernel wrappers
-    return batch-first views of batch-last buffers; the joined outputs have
-    the same layout, so the reductions of the reward sum them in the same
-    order as the outputs of one launch on the whole batch."""
-    world, _ = process_group()
-    if world > 1:
-        local = [all_gather_rows(x, world) for x in local]
-    return tuple(x.movedim(-1, 0) for x in local)
-
-
-def launch_shards(ctrl: "Controller", launch, shards: list) -> list:
-    """``launch`` on each (device, inputs) shard, its inputs copied to its
-    device: on the card each on a CUDA stream of its own that waits for the
-    current streams of its device and of its inputs' and that its device's
-    current stream then waits for, so the shards overlap (also inside a
-    graph capture, where the streams fork from the capturing one and join
-    back). Each shard's stream waits before it allocates, so no block is
-    reused early."""
-    if not any(d.type == "cuda" for d, _ in shards):
-        return [launch(ctrl, *(x.to(d) for x in ins)) for d, ins in shards]
-    outs, joins = [], []
-    for i, (d, ins) in enumerate(shards):
-        current = torch.cuda.current_stream(d)
-        stream = ctrl.shard_stream(i, d)
-        for src in dict.fromkeys([d, *(x.device for x in ins)]):
-            stream.wait_stream(torch.cuda.current_stream(src))
-        with torch.cuda.stream(stream):
-            outs.append(launch(ctrl, *(x.to(d, non_blocking=True) for x in ins)))
-        joins.append((current, stream))
-    for current, stream in joins:
-        current.wait_stream(stream)
-    return outs
-
-
-def all_gather_rows(local: torch.Tensor, world: int) -> torch.Tensor:
-    """Every process's batch-last ``local`` (contiguous), joined along the
-    batch (the last dim) in rank order, on ``local``'s device."""
-    full = local.new_empty((world * local.shape[0], *local.shape[1:]))
-    all_gather_tensor(full, local)
-    return ranks_joined(full, world)
 
 
 def _model_key(m) -> str:
@@ -781,8 +713,9 @@ def make_controller(
     mesh=None,
 ) -> Controller:
     """A controller from registry names, on ``device`` in ``dtype``. The
-    default device is the card (with a mesh, its lead device); without a
-    CUDA GPU this raises, and the caller passes ``device="cpu"``. ``mesh``
+    default device is the card (with a mesh of CUDA devices, its lead
+    device); without a CUDA GPU this raises, also with a mesh, and the
+    caller passes ``device="cpu"`` (with a mesh of ``cpu`` devices). ``mesh``
     takes ``None``/``"none"``, ``"auto"``, ``"hybrid"`` or a ``RolloutMesh``
     (``resolve_mesh``): the rollouts shard over it, and ``num_rollouts``
     must divide by its device count. The per-task defaults are registered
@@ -790,7 +723,7 @@ def make_controller(
     them stand."""
     mesh = resolve_mesh(mesh)
     if device is None:
-        device = "cuda" if mesh is None else mesh.lead
+        device = mesh.lead if mesh is not None and mesh.lead.type == "cuda" else "cuda"
     task_entry = get_registered_tasks().get(init_task)
     opt_entry = get_registered_optimizers().get(init_optimizer)
     if task_entry is None:

@@ -31,21 +31,20 @@ buffers, so the carry chains on the card with no trip to the host. A capture
 that fails raises ``SolveCaptureError`` naming the operation; nothing falls
 back to the eager solve.
 
-With a mesh (``parallel/mesh.py``) the solve launches the rollout kernel once
-per shard. Where every shard of this process is on the lead device (two
-shards on one card), the entry is still one graph: inside the capture each
-shard's launch forks onto a stream of its own and joins back, so the shards'
-kernels overlap on the card. Where shards sit on other devices, or other
-processes hold rows of the mesh, one graph cannot hold the solve (a capture is
-bound to one device, and a collective waits outside it), so the capture is cut
-at each optimizer iteration's rollout (``SolveCapture``): the lead device's
-graphs run from sampling to the shards' input blocks and from the gathered
-outputs on; each device that takes part has a graph of its own, in its own
-memory pool, with its shards' launches. Between the replays the inputs are
-copied to the other devices' buffers, the outputs back into the lead device's
-(``non_blocking`` copies, ordered by the streams' events), and gathered from
-every process (``all_gather_single``). The warm-up runs the shards on their
-streams too, on each device.
+With a mesh (``parallel/mesh.py``) the capture is cut at each optimizer
+iteration's rollouts (``SolveCapture``). One graph cannot hold a solve whose
+shards sit on other devices (a capture is bound to one device) or in other
+processes (a collective waits outside it); every mesh takes the cut path, a
+mesh whose shards all sit on the lead device too, so that a mesh on one card
+runs the code a mesh over several runs. The lead device's graphs run from sampling to the shards'
+input blocks and from the gathered outputs on; each device of this process's
+shards has a graph of its own, in its own memory pool, with its shards'
+launches (several shards on one device fork onto streams of their own inside
+it). Between the replays the inputs are copied to the other devices'
+buffers, and the outputs joined into the lead device's and gathered from
+every process, as ``parallel/shards.py`` joins them when the solve runs
+eagerly (``non_blocking`` copies, ordered by the streams' events). The
+warm-up runs the shards eagerly on their streams.
 
 The cache is shared by the controllers of a process. When another
 controller's solve of the same signature comes, the carry handed to the
@@ -67,12 +66,9 @@ from typing import Any, Callable
 
 import torch
 
-from judo_tpu_torch.parallel.mesh import all_gather_tensor, process_group, ranks_joined, same_device
+from judo_tpu_torch.parallel.mesh import same_device
+from judo_tpu_torch.parallel.shards import batch_first, join_buffers, join_shards, launch_shards, shard_blocks
 from judo_tpu_torch.physics.fused_rollout import tallied_launches
-
-# The runner of the sharded rollouts while this thread captures a solve in
-# segments (``SolveCapture``); the solve's ``rollout_shards`` reads it.
-segmenting = threading.local()
 
 # The carried solver state's fields that are tensors (or trees of them); the
 # generator stays with the controller that holds the carry.
@@ -197,9 +193,11 @@ class SolveGraph:
                 self._taken[i] = src
 
     # --- the solve ---
-    def _step(self, ctrl):
-        """The eager solve on the buffers, its new carry copied into the carry buffers."""
-        new_carry, outputs = self.solve_fn(ctrl, self._carry_view(), *self.inputs, self.noise)
+    def _step(self, ctrl, rollouts: Callable | None = None):
+        """The eager solve on the buffers, its new carry copied into the carry
+        buffers; ``rollouts`` runs its rollouts in place of the solve's own."""
+        extra = () if rollouts is None else (rollouts,)
+        new_carry, outputs = self.solve_fn(ctrl, self._carry_view(), *self.inputs, self.noise, *extra)
         for f in CARRY_FIELDS:
             for buf, new in zip(leaves(self.carry[f]), leaves(getattr(new_carry, f))):
                 if new is not buf:
@@ -209,8 +207,8 @@ class SolveGraph:
     def _capture(self, ctrl) -> None:
         """Warm the solve up on a side stream (outputs dropped, carry buffers
         untouched), then capture it with the carry's copy-back: into one
-        graph, or, where shards run off the lead device or rows in other
-        processes, in segments (``SolveCapture``)."""
+        graph, or, with a mesh, in segments cut at the rollouts
+        (``SolveCapture``)."""
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(current)
@@ -219,24 +217,18 @@ class SolveGraph:
                 self.solve_fn(ctrl, self._carry_view(), *self.inputs, self.noise)
             current.wait_stream(stream)
         mesh = ctrl.mesh
-        cut = mesh is not None and (
-            process_group()[0] > 1 or any(not same_device(d, self.device) for d in mesh.local_devices())
-        )
         # capture_begin/end, not torch.cuda.graph: its entry synchronizes the
         # card and empties the device and pinned-host caches, which would make
         # the plant's next tick allocate anew and wait behind in-flight solves
-        capture = SolveCapture(self.device, cut)
+        capture = SolveCapture(self.device, cut=mesh is not None)
         try:
             with tallied_launches() as launches, torch.cuda.stream(stream):
                 capture.begin()
-                segmenting.runner = capture if cut else None
                 try:
-                    outputs = self._step(ctrl)
+                    outputs = self._step(ctrl, capture if mesh is not None else None)
                 except BaseException:
                     capture.abort()
                     raise
-                finally:
-                    segmenting.runner = None
                 capture.end()
         except Exception as e:
             raise SolveCaptureError(
@@ -286,16 +278,15 @@ class SolveGraph:
 
 class SolveCapture:
     """A solve captured as graphs on the ``lead`` device, the lead's capture
-    running on the current stream. Without ``cut`` it is one graph (with a
-    mesh, every shard on the lead device: ``rollout_shards`` forks them onto
-    streams inside it). With ``cut``, as this thread's ``segmenting.runner``, it cuts
-    the capture at each rollout: the lead graph so far ends after the shards'
-    input blocks; each device of the shards captures its launches in a graph
-    of its own (own pool, own stream); between the replays the inputs go to
-    the other devices, and the outputs come back into batch-last buffers on
-    the lead and are gathered from every process; a new lead graph, in the
-    lead graphs' shared pool, starts with the gathered outputs. ``steps``
-    replays the whole in order."""
+    running on the current stream. Without ``cut`` it is one graph. With
+    ``cut`` it is the solve's ``rollouts`` and cuts the capture at each
+    rollout: the lead graph so far ends after the shards' input blocks; each
+    device of the shards captures its launches in a graph of its own (own
+    pool, own stream); between the replays the inputs go to the other
+    devices, and the outputs are joined into batch-last buffers on the lead
+    and gathered from every process (``parallel/shards.py``); a new lead
+    graph, in the lead graphs' shared pool, starts with the gathered outputs.
+    ``steps`` replays the whole in order."""
 
     def __init__(self, lead: torch.device, cut: bool) -> None:
         self.lead = lead
@@ -321,12 +312,11 @@ class SolveCapture:
                 self.graph.capture_end()
             self.graph = None
 
-    def __call__(self, ctrl, launch, inputs: tuple, blocks: list) -> tuple:
-        """``rollout_shards`` at a cut: -> the gathered outputs, batch-first
+    def __call__(self, ctrl, launch, inputs: tuple) -> tuple:
+        """The solve's rollouts at a cut: -> the gathered outputs, batch-first
         views of buffers the next lead graph reads."""
-        from judo_tpu_torch.controller.controller import launch_shards
-
         lead = self.lead
+        blocks = shard_blocks(ctrl, inputs[0].shape[0])
         parts = [[x[rows].contiguous() for x in inputs] for _, rows in blocks]
         self.end()
         outs: list = [None] * len(blocks)
@@ -341,6 +331,7 @@ class SolveCapture:
                 ins = {i: [torch.empty(p.shape, dtype=p.dtype, device=dev) for p in parts[i]] for i in idx}
                 pairs = [(ins[i], parts[i]) for i in idx]
             self.steps.append(functools.partial(_copy_in, lead, stream, pairs))
+            self.held.append(ins)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
@@ -355,18 +346,11 @@ class SolveCapture:
             self.steps.append(functools.partial(_replay_on, graph, stream))
             for i, o in zip(idx, shard_outs):
                 outs[i] = [y.movedim(0, -1) for y in o]
-        b = blocks[0][1].stop - blocks[0][1].start
-        local = [torch.empty((*y.shape[:-1], b * len(blocks)), dtype=y.dtype, device=lead) for y in outs[0]]
-        world, _ = process_group()
-        full = ([torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=lead) for x in local]
-                if world > 1 else None)
-        self.steps.append(functools.partial(_join, lead, [(streams[d], o) for (d, _), o in zip(blocks, outs)], b,
-                                            local, full))
-        self.held.append((parts, ins, outs, local, full))
+        local, full = join_buffers(lead, outs)
+        self.steps.append(functools.partial(join_shards, lead, outs, [streams[d] for d, _ in blocks], local, full))
+        self.held.append((parts, outs, local, full))
         self.begin()
-        if full is None:
-            return tuple(x.movedim(-1, 0) for x in local)
-        return tuple(ranks_joined(f, world).movedim(-1, 0) for f in full)
+        return batch_first(local, full)
 
 
 def _copy_in(lead: torch.device, stream: torch.cuda.Stream, pairs: list) -> None:
@@ -383,18 +367,3 @@ def _copy_in(lead: torch.device, stream: torch.cuda.Stream, pairs: list) -> None
 def _replay_on(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream) -> None:
     with torch.cuda.stream(stream):
         graph.replay()
-
-
-def _join(lead: torch.device, shards: list, b: int, local: list, full: list | None) -> None:
-    """Each shard's batch-last outputs into its columns of the lead's
-    buffers, copied on the shard's stream, which the lead's current stream
-    then waits for; then every process's buffers gathered into ``full``."""
-    current = torch.cuda.current_stream(lead)
-    for i, (stream, outs) in enumerate(shards):
-        cols = slice(i * b, (i + 1) * b)
-        with torch.cuda.stream(stream):
-            for dst, src in zip(local, outs):
-                dst[..., cols].copy_(src, non_blocking=True)
-        current.wait_stream(stream)
-    for f, x in zip(full or (), local):
-        all_gather_tensor(f, x)

@@ -14,9 +14,12 @@ virtual CPU devices.
   JAX tests' own tolerance: rtol 1e-6, atol 1e-8 on rewards and knots.
 - The split is real: 8 launches of B 2 per optimizer iteration at R 16;
   ``update`` of PS, MPPI and CEM on gathered shards equals it on the whole
-  batch; the cache keys on the mesh; a batch that does not divide, and a
-  device that is not the mesh's lead, are refused; the nodes and the CLI take
-  a mesh; ``initialize_distributed`` is a no-op with nothing configured.
+  batch; the plain MLP's columns do not depend on the batch width; the
+  cache keys on the mesh; a batch that does not divide, and a device that
+  is not the mesh's lead, are refused; make_controller with a mesh and no
+  device plans on the card (and raises without one); the nodes and the CLI
+  take a mesh; ``initialize_distributed`` is a no-op with nothing
+  configured.
 """
 
 import functools
@@ -36,7 +39,7 @@ from judo_tpu.tasks import get_registered_tasks as jax_registered_tasks
 from judo_tpu_torch.app.bus import MessageBus
 from judo_tpu_torch.app.nodes import ControllerNode
 from judo_tpu_torch.cli import build_parser, main
-from judo_tpu_torch.controller import Controller, ControllerConfig
+from judo_tpu_torch.controller import Controller, ControllerConfig, make_controller
 from judo_tpu_torch.controller import controller as controller_module
 from judo_tpu_torch.optimizers import (
     MPPI,
@@ -223,6 +226,24 @@ def test_solve_outputs_actually_sharded(monkeypatch):
     assert c.last_outputs.states.shape[0] == 16
 
 
+def test_spot_mlp_columns_do_not_depend_on_the_batch_width():
+    """The plain MLP takes its columns MLP_COLUMNS at a time: at a batch over
+    two chunks each column equals the MLP on that column alone, bitwise, and
+    the whole equals the matmul form within float64 rounding."""
+    from judo_tpu_torch.tasks.spot.policy import MLP_COLUMNS, SpotPolicy, activate, mlp_l
+
+    policy = SpotPolicy.load(device="cpu")
+    B = 2 * MLP_COLUMNS + 3
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((84, B)))
+    y = mlp_l(policy, x)
+    for i in (0, MLP_COLUMNS - 1, MLP_COLUMNS, B - 1):
+        assert torch.equal(mlp_l(policy, x[:, i : i + 1])[:, 0], y[:, i])
+    ref = x
+    for lin, act in zip(policy.layers, policy.activations):
+        ref = activate(act, lin.weight.double() @ ref + lin.bias.double()[:, None])
+    torch.testing.assert_close(y, ref, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize(
     "opt_cls,cfg_cls",
     [
@@ -269,6 +290,20 @@ def test_signature_keys_on_the_mesh_and_refusals():
         c.update_action()
     with pytest.raises(ValueError, match=r"task's device cpu is not the mesh's lead device cuda:1"):
         _controller("cylinder_push", make_rollout_mesh(devices=["cuda:1", "cuda:1"]))
+
+
+@pytest.mark.parametrize("mesh_name", ["hybrid", "cpu x2"])
+def test_make_controller_with_a_mesh_defaults_to_the_card(monkeypatch, mesh_name):
+    """With a mesh and no device, make_controller plans on the card as it does
+    without one: where no GPU is visible it raises, also over a mesh of
+    ``cpu`` devices; the CPU only when the caller names it."""
+    for k in DIST_ENV:
+        monkeypatch.delenv(k, raising=False)
+    mesh = "hybrid" if mesh_name == "hybrid" else make_rollout_mesh(devices=["cpu"] * 2)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        make_controller("cylinder_push", "mppi", mesh=mesh)
+    c = make_controller("cylinder_push", "mppi", device="cpu", mesh=mesh)
+    assert c.device == torch.device("cpu") and c.mesh is not None
 
 
 # --- the nodes and the CLI ---
