@@ -33,6 +33,15 @@ without the final line):
      the plane-cylinder rim direction is rounding noise, over 1 tick;
    - physics_step (K3) against step_l with a cold probe, leap at 320, spot
      at 24 and fr3_pick at 64 rollouts;
+   - over each planning path's whole horizon (``full_horizon``): K1 on leap
+     at 33 rollouts over T 100 from onset forces of one plain step, K2 on
+     spot_navigate at 24 rollouts over 100 policy ticks of 2 steps, and K3
+     chained 100 ticks at one environment from leap_cube's reset with its
+     reset command held, each chain against the plain version's chain;
+     float64 checked against 1e-8; float32 printed beside the plain
+     version's own float32 vs float64 gap on the same seeded inputs, not checked
+     (float32 trajectories that cross contacts part at rounding); then the
+     phase's seconds;
 4. paths, each driven with every launch count set to 0 just before it and
    read just after. Every plan runs through the controller's solve cache: on
    the card a CUDA graph per shape signature, captured at its first solve and
@@ -177,6 +186,8 @@ LIMITS = {"f64": 1e-8, "f32": 1e-3, "f32_efc0_rel": 1e-2, "f32_distance": 1e-2, 
 # noise against the 1e-8 fallback, so the tire rests on a rim point that any
 # change in the order of operations moves (PERF.md section 6).
 B_MAIN, T_CHECK, T_FULL = 320, 5, 100
+# Rollouts of K1 on leap in the full-horizon phase: one more than a warp.
+B_FULL = 33
 R_SPOT, T_POLICY_CHECK = 24, 3
 # The Spot tasks with an object; K2 plans them all.
 OBJECT_TASKS = ("spot_box_push", "spot_tire_roll", "spot_tire_upright")
@@ -536,6 +547,69 @@ def k3_vs_plain(dtype_name: str, scene: str) -> dict:
         plain64 = physics_step_reference(scene_model(scene, d), qp.to(d), qv.to(d), ctrl.to(d), f.to(d), 8)[2]
     split_distance_errs(m, err, ref[2], out[2], plain64)
     return err
+
+
+def full_horizon() -> dict:
+    """Each kernel against its plain version on the card over its planning
+    path's whole horizon, float64 then float32 on the same seeded inputs: K1 on leap
+    (B_FULL rollouts, T_FULL steps, onset forces from one plain step), K2 on
+    spot_navigate (R_SPOT rollouts, T_FULL policy ticks of 2 steps), K3
+    chained T_FULL times at one environment as the plant steps (from
+    leap_cube's reset with its reset command held, each tick from its own
+    last state, a cold probe, zero forces, the model's own iterations), each
+    chain against the plain version's chain. -> {"f64": {kernel: gap},
+    "f32": {kernel: gap, kernel + "_plain_f32_vs_f64": the plain version's
+    own float32 vs float64 gap}}, with each check's seconds (kernel +
+    "_seconds"); each plain version runs once per dtype."""
+    import torch
+
+    from judo_tpu_torch.physics.fused_rollout import (
+        fused_rollout, num_constraint_rows, physics_step, physics_step_reference, rollout_lanes_reference,
+    )
+    from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout, policy_rollout_lanes_reference
+    from judo_tpu_torch.tasks.leap_cube import LeapCube
+
+    def gap(a, b) -> float:
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+    res, plain64 = {"f64": {}, "f32": {}}, {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        e, t0 = res[name], time.perf_counter()
+
+        def keep(kernel, ref, out):
+            nonlocal t0
+            e[f"{kernel}_seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
+            e[kernel] = gap(ref, out)
+            if name == "f64":
+                plain64[kernel] = ref
+            else:
+                e[f"{kernel}_plain_f32_vs_f64"] = gap(ref, plain64[kernel])
+
+        m = scene_model("leap", dtype)
+        qp, qv, ct = leap_inputs(m, B_FULL, T_FULL + 1, seed=12, dtype=dtype, device="cuda")
+        zeros = torch.zeros((num_constraint_rows(m), B_FULL), dtype=dtype, device="cuda")
+        f0 = rollout_lanes_reference(m, qp, qv, ct[:1], zeros, 1, 8)[3]
+        ct = ct[1:].contiguous()
+        keep("fused_rollout", rollout_lanes_reference(m, qp, qv, ct, f0, 1, 8), fused_rollout(m, qp, qv, ct, f0, 1, 8))
+
+        task = spot_task("spot_navigate", dtype)
+        args = spot_inputs(task, R_SPOT, T_FULL, seed=13, dtype=dtype, device="cuda")
+        keep("fused_policy_rollout", policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8),
+             fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8))
+
+        plant = LeapCube(device="cuda", dtype=dtype, seed=0)
+        col = lambda x: tensor(np.asarray(x)[:, None], dtype, "cuda")  # noqa: E731
+        u, zeros = col(plant.reset_command), zeros[:, :1].contiguous()
+        ref = out = (col(plant.qpos), col(plant.qvel))
+        refs, outs = [], []
+        for _ in range(T_FULL):
+            ref = physics_step_reference(m, *ref[:2], u, zeros)
+            out = physics_step(m, *out[:2], u, zeros)
+            refs.append(torch.cat(ref))
+            outs.append(torch.cat(out))
+        keep("physics_step", [torch.stack(refs)], [torch.stack(outs)])
+    torch.cuda.synchronize()
+    return res
 
 
 def reset_counts() -> None:
@@ -1858,6 +1932,23 @@ def main() -> int:
                 check(f"physics_step vs plain f64 {scene} efc", e["efc"], LIMITS["f64"])
             else:
                 check(f"physics_step vs plain f32 {scene} efc relative", e["efc_rel"], LIMITS["f32_efc0_rel"])
+
+    t0 = time.perf_counter()
+    horizon = full_horizon()
+    shapes = {"fused_rollout": f"leap B={B_FULL} T={T_FULL}",
+              "fused_policy_rollout": f"spot_navigate B={R_SPOT} T={T_FULL}x2",
+              "physics_step": f"leap B=1 chained {T_FULL} ticks from the reset, the model's iterations"}
+    for name in ("f64", "f32"):
+        e = horizon[name]
+        for kernel, shape in shapes.items():
+            label = f"full horizon {kernel} vs plain {name} {shape}"
+            if name == "f64":
+                check(label, e[kernel], LIMITS["f64"])
+            else:
+                print(f"{label}: max err {e[kernel]:.3e}; the plain version's own f32 vs f64 gap "
+                      f"{e[kernel + '_plain_f32_vs_f64']:.3e} (printed, not checked)", flush=True)
+    seconds = ", ".join(f"{name} {k} {horizon[name][k + '_seconds']:.1f} s" for name in ("f64", "f32") for k in shapes)
+    print(f"full horizon phase: {time.perf_counter() - t0:.1f} s ({seconds})", flush=True)
 
     card = card_info()
     leap = leap_path()

@@ -18,24 +18,15 @@ from judo_tpu.physics import put_model as jax_put_model
 from judo_tpu.physics.pallas_step import rollout_lanes as jax_rollout_lanes
 from judo_tpu_torch.physics import fused_rollout as fr
 from judo_tpu_torch.physics.model import num_constraint_rows, put_model
-from judo_tpu_torch.tasks.leap_cube import QPOS_REST
 
 from .test_physics.test_parity import CARTPOLE
+from .torch_inputs import leap_batch
 
 
 def _jax_rollout(jm, qp, qv, ct, efc_warm=None):
     fn = jax.jit(lambda a, b, c, f: jax_rollout_lanes(jm, a, b, c, backend="xla", iterations=8, efc_warm=f))
     out = fn(*(jnp.asarray(x) if x is not None else None for x in (qp, qv, ct, efc_warm)))
     return np.asarray(out.states), np.asarray(out.sensordata), np.asarray(out.efc0)
-
-
-def _leap_batch(R, T, seed):
-    rng = np.random.default_rng(seed)
-    qp = np.tile(QPOS_REST, (R, 1))
-    qp[:, :3] += 5e-4 * rng.standard_normal((R, 3))
-    qv = 0.05 * rng.standard_normal((R, 22))
-    ct = np.tile(QPOS_REST[7:], (R, T, 1)) + 0.1 * rng.standard_normal((R, T, 16))
-    return qp, qv, ct
 
 
 def test_rollout_lanes_cartpole_matches_jax():
@@ -56,7 +47,7 @@ def test_rollout_lanes_leap_matches_jax():
     jm = jax_put_model(mj, dtype=jnp.float64, solver_iterations=8)
     pm = put_model(mj, dtype=np.float64, solver_iterations=8)
     R, T = 3, 10
-    qp, qv, ct = _leap_batch(R, T, seed=1)
+    qp, qv, ct = leap_batch(R, T, seed=1)
     warm = np.abs(0.05 * np.random.default_rng(2).standard_normal((R, num_constraint_rows(pm))))
     js, jsens, jefc0 = _jax_rollout(jm, qp, qv, ct, warm)
     out = fr.rollout_lanes(pm, *(torch.tensor(x) for x in (qp, qv, ct)), efc_warm=torch.tensor(warm))
@@ -75,7 +66,7 @@ def test_host_twin_matches_plain_version(scene):
     B = 1 if scene == "leap_b1" else 4
     if scene.startswith("leap"):
         m = put_model(mujoco.MjModel.from_xml_path(leap_cube_xml_path()), dtype=np.float64, solver_iterations=8)
-        qp, qv, ct = _leap_batch(B, 3, seed=3)
+        qp, qv, ct = leap_batch(B, 3, seed=3)
     else:
         m = put_model(mujoco.MjModel.from_xml_string(CARTPOLE), dtype=np.float64)
         rng = np.random.default_rng(4)
@@ -133,7 +124,7 @@ def test_kernel_matches_plain_version_on_gpu():
     from judo_tpu_torch.tasks.leap_cube import LeapCube
 
     m = LeapCube(device="cuda", dtype=torch.float64).planning_model
-    qp, qv, ct = _leap_batch(64, 3, seed=6)
+    qp, qv, ct = leap_batch(64, 3, seed=6)
     args = [torch.tensor(x, device="cuda") for x in (qp.T.copy(), qv.T.copy(), ct.transpose(1, 2, 0).copy())]
     f0 = torch.zeros((num_constraint_rows(m), 64), dtype=torch.float64, device="cuda")
     ref = fr.rollout_lanes_reference(m, *args, f0, 1, 8)

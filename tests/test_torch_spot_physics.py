@@ -38,10 +38,9 @@ from judo_tpu_torch.tasks.spot.spot_navigate import SpotNavigate
 
 from .test_physics.test_parity import CARTPOLE
 from .test_torch_physics import _random_frames
+from .torch_inputs import STAND, TARGETS, policy_inputs
 
 R = 3
-STAND = np.array([0, 0, sc.STANDING_HEIGHT, 1, 0, 0, 0, *sc.LEGS_STANDING_POS, *sc.ARM_STOWED_POS])
-TARGETS = np.r_[sc.LEGS_STANDING_POS, sc.ARM_STOWED_POS]
 
 
 @pytest.fixture(scope="module")
@@ -141,26 +140,13 @@ def test_dual_solve_orthant_matches_jax():
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-9, rtol=0)
 
 
-def _policy_inputs(nv, T, seed, B=R):
-    rng = np.random.default_rng(seed)
-    qp = np.tile(STAND, (B, 1))
-    qv = 0.05 * rng.standard_normal((B, nv))
-    pout = 0.3 * rng.standard_normal((B, 12))
-    cmds = np.zeros((B, T, 25))
-    cmds[..., :3] = 0.4 * rng.standard_normal((B, T, 3))
-    cmds[..., 3:10] = sc.ARM_STOWED_POS
-    cmds[..., 24] = sc.STANDING_HEIGHT_CMD
-    cmds[1 % B, :, 13:16] = 0.3  # one rollout overrides its front-right leg
-    return qp, qv, pout, cmds
-
-
 def test_policy_rollout_reference_matches_jax():
     """policy_rollout_lanes against JAX's (backend "xla"), R 3, T 2 ticks of 2
     steps, float64, from a nonzero policy output."""
     jtask = JaxSpotNavigate()
     jtask._planning_dtype = jnp.float64
     task = SpotNavigate(device="cpu", dtype=torch.float64)
-    qp, qv, pout, cmds = _policy_inputs(task.nv, 2, seed=3)
+    qp, qv, pout, cmds = policy_inputs(task.nv, 2, seed=3)
     ref = jax_policy_rollout_lanes(
         jtask.planning_model, jtask.policy, *(jnp.asarray(x) for x in (qp, qv, cmds, pout)),
         physics_substeps=2, iterations=8, backend="xla",
@@ -177,7 +163,7 @@ def test_policy_rollout_host_twin_matches_plain_version():
     """The policy kernel's body, compiled by g++ with the warp's 32 lanes
     played in one thread, against the plain version."""
     task = SpotNavigate(device="cpu", dtype=torch.float64)
-    qp, qv, pout, cmds = _policy_inputs(task.nv, 3, seed=4)
+    qp, qv, pout, cmds = policy_inputs(task.nv, 3, seed=4)
     args = (torch.tensor(qp.T.copy()), torch.tensor(qv.T.copy()), torch.tensor(pout.T.copy()),
             torch.tensor(cmds.transpose(1, 2, 0).copy()))
     ref = pr.policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
@@ -197,7 +183,7 @@ def test_policy_rollout_host_twin_batch_sizes(B):
     """The policy kernel's body against the plain version at one rollout and
     at 33, one more than a warp: 2 ticks of 2 steps, float64."""
     task = SpotNavigate(device="cpu", dtype=torch.float64)
-    qp, qv, pout, cmds = _policy_inputs(task.nv, 2, seed=13, B=B)
+    qp, qv, pout, cmds = policy_inputs(task.nv, 2, seed=13, B=B)
     args = (torch.tensor(qp.T.copy()), torch.tensor(qv.T.copy()), torch.tensor(pout.T.copy()),
             torch.tensor(cmds.transpose(1, 2, 0).copy()))
     ref = pr.policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
@@ -243,7 +229,7 @@ def _step_inputs(scene, B=R):
         qv, ctrl = rng.standard_normal((2, B)), rng.standard_normal((1, B))
     else:
         m = SpotNavigate(device="cpu", dtype=torch.float64).planning_model
-        qp, qv, _, _ = _policy_inputs(m.nv, 1, seed=10, B=B)
+        qp, qv, _, _ = policy_inputs(m.nv, 1, seed=10, B=B)
         qp, qv = qp.T.copy(), qv.T.copy()
         ctrl = np.tile(TARGETS[:, None], (1, B))
     f = np.abs(0.05 * np.random.default_rng(11).standard_normal((num_constraint_rows(m), B)))
@@ -272,7 +258,7 @@ def test_policy_kernel_matches_plain_version_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     task = SpotNavigate(device="cuda", dtype=torch.float64)
-    qp, qv, pout, cmds = _policy_inputs(task.nv, 2, seed=12)
+    qp, qv, pout, cmds = policy_inputs(task.nv, 2, seed=12)
     args = [torch.tensor(x, device="cuda") for x in (qp.T.copy(), qv.T.copy(), pout.T.copy(), cmds.transpose(1, 2, 0).copy())]
     ref = pr.policy_rollout_lanes_reference(task.planning_model, task.policy, *args, 2, 8)
     out = pr.fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8)
