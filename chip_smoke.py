@@ -111,7 +111,7 @@ without the final line):
    - the profile: judo_tpu_torch.utils.profiling.trace around 5 leap_cube +
      mppi solves at depth 0, 20 calls at depth 2 and 10 cylinder_push + ps
      solves, and the depth-0 segments again with eager twins, each
-     update_action inside annotate("update_action"); K1's kernel events in
+     update_action in its own "judo.plan" span; K1's kernel events in
      the Chrome trace must equal its launch counter, and per segment the
      card's busy share (the union of its kernel and copy intervals over the
      segment's window), idle share and kernel launches per solve are printed;
@@ -1309,8 +1309,8 @@ def _union_ms(intervals, lo: float, hi: float) -> float:
 
 def profile_phase() -> dict:
     """``utils.profiling.trace`` around the PROFILE_SEGMENTS solves, each
-    ``update_action`` inside ``annotate("update_action")`` and each segment
-    inside an ``annotate`` of its label (a depth-2 segment ends with
+    ``update_action`` in its own ``judo.plan`` span and each segment
+    inside a ``span`` of its label (a depth-2 segment ends with
     ``flush_pipeline``, so its window holds its last solves). From the Chrome
     trace: K1's kernel events against its launch counter, and per segment the
     card's busy share, the union of its kernel and copy intervals over the
@@ -1319,7 +1319,7 @@ def profile_phase() -> dict:
 
     from judo_tpu_torch.controller import make_controller
     from judo_tpu_torch.tasks.leap_cube import QPOS_REST
-    from judo_tpu_torch.utils.profiling import annotate, trace
+    from judo_tpu_torch.utils.profiling import TRACE_PREFIX, span, trace
 
     controllers = []
     for label, task, opt, R, depth, calls, eager_twin in PROFILE_SEGMENTS:
@@ -1337,10 +1337,9 @@ def profile_phase() -> dict:
     reset_counts()
     with trace(PROFILE_DIR) as prof:
         for (label, _, _, _, _, calls, _), c in zip(PROFILE_SEGMENTS, controllers):
-            with annotate(label):
+            with span(label):
                 for _ in range(calls):
-                    with annotate("update_action"):
-                        c.update_action()
+                    c.update_action()
                 c.flush_pipeline()
                 torch.cuda.synchronize()
     counts = read_counts()
@@ -1348,7 +1347,7 @@ def profile_phase() -> dict:
     device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k1 = [e for e in kernels if "fused_rollout_kernel" in e["name"]]
-    regions = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    regions = {e["name"].removeprefix(TRACE_PREFIX): e for e in events if e.get("cat") == "user_annotation"}
     segments = []
     for label, *_, calls, _ in PROFILE_SEGMENTS:
         r = regions[label]
@@ -1360,7 +1359,7 @@ def profile_phase() -> dict:
                          "k1_ms": sum(e["dur"] for e in seg_k1) / 1e3,
                          "kernel_events": sum(1 for e in kernels if lo <= e["ts"] < hi),
                          "device_events": sum(1 for a, _ in device if lo <= a < hi)})
-    n_regions = sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == "update_action")
+    n_regions = sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == TRACE_PREFIX + "plan")
     return {"counts": counts, "k1_events": len(k1), "kernel_events": len(kernels), "segments": segments,
             "update_action_regions": n_regions, "trace": str(prof.trace_path)}
 

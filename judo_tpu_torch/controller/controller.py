@@ -41,8 +41,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import threading
-import time as _time
 import warnings
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Literal, NamedTuple
@@ -65,6 +65,7 @@ from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
 from judo_tpu_torch.tasks import Task, get_registered_tasks
 from judo_tpu_torch.utils import normalization as norm
+from judo_tpu_torch.utils.profiling import span
 
 
 @slider("horizon", 0.1, 10.0, bounded=True)
@@ -235,14 +236,18 @@ def _policy_key(policy) -> str | None:
 
 class _InFlight(NamedTuple):
     """A dispatched solve: its carry, outputs and metadata, the host buffer
-    its mirror is copied into, and the event that ends that copy (None on the
-    CPU)."""
+    its mirror is copied into, the event that ends that copy (None on the
+    CPU), its id, its spans (name -> ms) and the ``perf_counter_ns`` at the
+    entry of the call that dispatched it."""
 
     carry: SolverState
     outputs: SolveOutputs
     metadata: dict
     host_mirror: torch.Tensor
     ready: torch.cuda.Event | None
+    solve_id: int
+    spans: dict
+    t_call: int
 
 
 class Controller:
@@ -259,6 +264,8 @@ class Controller:
     _SOLVE_CACHE_MAX = 16
     _solve_cache: dict[tuple, SolveGraph] = {}
     _solve_cache_lock = threading.Lock()
+    # The records of the last PLAN_LOG_MAX published solves (``plan_log``).
+    PLAN_LOG_MAX = 4096
 
     def __init__(
         self, controller_config: ControllerConfig, task: Task, optimizer: Optimizer, seed: int | None = None,
@@ -290,6 +297,10 @@ class Controller:
             [adr + k for adr in task.trace_sensor_adr for k in range(3)], dtype=torch.long, device=self.device
         )
         self.last_plan_timing: dict[str, float] | None = None
+        self.solves_dispatched = 0  # the next solve's id
+        # one record a published solve, in the order they publish: {"id", "spans" (name -> ms), "latency_ms"}
+        self.plan_log: deque[dict] = deque(maxlen=self.PLAN_LOG_MAX)
+        self._solve_spans: dict | None = None  # the spans of the solve being dispatched, for the cache's entry
         self.last_outputs: SolveOutputs | None = None
         self.traces: np.ndarray | None = None
         self.rewards = np.zeros(self.optimizer_cfg.num_rollouts)
@@ -516,33 +527,66 @@ class Controller:
 
     # --- main entry points ---
     def update_action(self) -> None:
-        """One planning step; per-stage times land in ``last_plan_timing``:
-        prep (host staging and the solve cache's lookup), device (the
-        dispatch: the entry's copies, noise draws and graph replay, which
-        return before the card has run the solve) and sync (publishing the
-        mirrors; at ``pipeline_depth > 0`` only handing the oldest solve to
-        the consumer).
+        """One planning step. Each dispatched solve gets an id (its
+        ``solves_dispatched`` count) and a record of its spans
+        (``utils/profiling.py`` names them), which goes into ``plan_log``
+        when the solve is published, on the thread that publishes it, with
+        ``latency_ms``: from this call's entry to the end of the solve's
+        ``publish`` span, when ``action(t)`` starts to read the new plan.
+        ``last_plan_timing`` holds this call's split, in ms, from the same
+        spans: prep (``prep.*``: host staging and the solve cache's lookup),
+        device (``dispatch.*``: the entry's copies, noise draws and graph
+        replay, and the mirror's copy queued behind it, which return before
+        the card has run the solve), sync (the rest of the call: publishing
+        the mirrors; at ``pipeline_depth > 0`` only handing the oldest solve
+        to the consumer, and waiting on its backlog) and total (``plan``).
+        The spans cost two clock reads and a dict store each with no
+        profiler; while ``torch.profiler`` records, they lie in its trace as
+        ``judo.<span>`` events.
 
         With ``pipeline_depth > 0`` the call dispatches the new solve first and
         then hands the oldest in-flight solve to the consumer thread once more
         than ``depth`` are pending: the card works on solve N while the host
         publishes solve N - depth. The carry chains on the device with no
         host round trip, so only the published mirrors lag by ``depth``
-        solves (controller.py:629-717 of the JAX package)."""
-        t0 = _time.perf_counter()
-        if self.current_state.shape != (self.pm.nq + self.pm.nv,):
-            raise ValueError(f"current_state has shape {self.current_state.shape}")
-        if self.optimizer_cfg.num_rollouts < 1:
-            raise ValueError("Need at least one rollout!")
-        self._enforce_cubic_min_nodes()
-        self._check_mesh()
-        self._sync_state_shapes()
-        merged, inputs = self._solve_inputs()
-        entry = self._get_solve(inputs)
-        t1 = _time.perf_counter()
-        self._carry, outputs = entry(self, self._carry, inputs)
-        self._pending.append(_InFlight(self._carry, outputs, merged, *self._start_readback(outputs.mirror)))
-        t2 = _time.perf_counter()
+        solves (controller.py:629-717 of the JAX package). A call waits only
+        once more than two handed-off solves are unpublished, so with calls
+        back to back a state is published about ``depth`` + 3 of the card's
+        solves after the call that took it (its ``latency_ms``)."""
+        solve_id, spans = self.solves_dispatched, {}
+        with span("plan", spans, args=solve_id) as plan:
+            self._plan(solve_id, spans, plan.t0)
+        prep = sum(ms for name, ms in spans.items() if name.startswith("prep."))
+        device = sum(ms for name, ms in spans.items() if name.startswith("dispatch."))
+        total = spans["plan"]
+        self.last_plan_timing = {"prep_ms": prep, "device_ms": device, "sync_ms": total - prep - device,
+                                 "total_ms": total}
+
+    def _plan(self, solve_id: int, spans: dict, t_call: int) -> None:
+        """The body of ``update_action``'s ``plan`` span: dispatch solve
+        ``solve_id`` and publish what the pipeline depth lets go. Its locals
+        (the staged pinned buffers among them, whose release records CUDA
+        events) are freed when it returns, inside the span."""
+        with span("prep.inputs", spans):
+            if self.current_state.shape != (self.pm.nq + self.pm.nv,):
+                raise ValueError(f"current_state has shape {self.current_state.shape}")
+            if self.optimizer_cfg.num_rollouts < 1:
+                raise ValueError("Need at least one rollout!")
+            self._enforce_cubic_min_nodes()
+            self._check_mesh()
+            self._sync_state_shapes()
+            merged, inputs = self._solve_inputs()
+        with span("prep.lookup", spans):
+            entry = self._get_solve(inputs)
+        self._solve_spans = spans
+        try:
+            self._carry, outputs = entry(self, self._carry, inputs)
+        finally:
+            self._solve_spans = None
+        with span("dispatch.readback", spans):
+            readback = self._start_readback(outputs.mirror)
+        self._pending.append(_InFlight(self._carry, outputs, merged, *readback, solve_id, spans, t_call))
+        self.solves_dispatched = solve_id + 1
         depth = max(int(self.controller_cfg.pipeline_depth), 0)
         if depth == 0:
             while self._pending:
@@ -555,13 +599,9 @@ class Controller:
                 # goes to the consumer, which publishes strictly in order
                 self._post_rollout(solved)
                 self._consume_futures.append(self._consumer.submit(self._consume_mirrors, solved))
-            while len(self._consume_futures) > 2:  # bound the backlog (controller.py:706-707)
-                self._consume_futures.pop(0).result()
-        t3 = _time.perf_counter()
-        self.last_plan_timing = {
-            "prep_ms": 1e3 * (t1 - t0), "device_ms": 1e3 * (t2 - t1), "sync_ms": 1e3 * (t3 - t2),
-            "total_ms": 1e3 * (t3 - t0),
-        }
+            with span("sync.backlog", spans):
+                while len(self._consume_futures) > 2:  # bound the backlog (controller.py:706-707)
+                    self._consume_futures.pop(0).result()
 
     def _solve_inputs(self) -> tuple[dict, SolveInputs]:
         """(the task's and the system's metadata, the next solve's inputs):
@@ -591,8 +631,9 @@ class Controller:
 
     def _post_rollout(self, solved: "_InFlight") -> None:
         outputs = solved.outputs
-        if outputs.states is not None:
-            self.task.post_rollout(outputs.states, outputs.sensors, outputs.rollout_controls, solved.metadata)
+        with span("post_rollout", solved.spans):
+            if outputs.states is not None:
+                self.task.post_rollout(outputs.states, outputs.sensors, outputs.rollout_controls, solved.metadata)
 
     def _consume(self, solved: "_InFlight") -> None:
         """Publish one solve's outputs on this thread."""
@@ -600,22 +641,28 @@ class Controller:
         self._consume_mirrors(solved)
 
     def _consume_mirrors(self, solved: "_InFlight") -> None:
-        """Wait for one solve's mirror to reach the host and publish it. The
-        layout's sizes come from that solve's own carry."""
-        if solved.ready is not None:
-            solved.ready.synchronize()
-        flat = solved.host_mirror.numpy().astype(np.float64)
-        n, nu = solved.carry.times.shape[0], solved.carry.nominal_knots.shape[1]
-        r = solved.outputs.rewards.shape[0]
-        times = flat[:n]
-        knots = flat[n : n + n * nu].reshape(n, nu)
-        rewards = flat[n + n * nu : n + n * nu + r]
-        traces = flat[n + n * nu + r :].reshape(-1, 2, 3)
-        with self._mirror_lock:
-            self.last_outputs = solved.outputs
-            self.times, self.nominal_knots, self.rewards = times, knots, rewards
-            self.update_spline(times, knots)
-            self.traces = traces if traces.size else None
+        """Wait for one solve's mirror to reach the host and publish it, then
+        log the solve's record. The layout's sizes come from that solve's own
+        carry."""
+        with span("wait", solved.spans):
+            if solved.ready is not None:
+                solved.ready.synchronize()
+        with span("publish", solved.spans) as publish:
+            flat = solved.host_mirror.numpy().astype(np.float64)
+            n, nu = solved.carry.times.shape[0], solved.carry.nominal_knots.shape[1]
+            r = solved.outputs.rewards.shape[0]
+            times = flat[:n]
+            knots = flat[n : n + n * nu].reshape(n, nu)
+            rewards = flat[n + n * nu : n + n * nu + r]
+            traces = flat[n + n * nu + r :].reshape(-1, 2, 3)
+            with self._mirror_lock:
+                self.last_outputs = solved.outputs
+                self.times, self.nominal_knots, self.rewards = times, knots, rewards
+                self.update_spline(times, knots)
+                self.traces = traces if traces.size else None
+        # at depth 0 the call's own ``plan`` span lands in ``spans`` once the call returns
+        self.plan_log.append({"id": solved.solve_id, "spans": solved.spans,
+                              "latency_ms": (publish.t1 - solved.t_call) / 1e6})
 
     def flush_pipeline(self) -> None:
         """Publish every in-flight solve (``pipeline_depth > 0``), in order."""

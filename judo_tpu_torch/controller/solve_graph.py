@@ -21,6 +21,11 @@ of each optimizer iteration. A call
 - clones the outputs behind it on the card (the next replay overwrites the
   graph's own) and hands out a carry made of its buffers.
 
+Each of these is a span (``utils/profiling.py``: ``dispatch.copy``,
+``dispatch.noise``, ``dispatch.capture``, ``dispatch.replay``,
+``dispatch.readback``) in the record of the solve; the spans sit around the
+capture and the replay, never inside the captured solve.
+
 The graph is captured at the entry's first call on the card. The solve is first
 run once on a side stream, which fills what a capture may not: the packed model
 and policy, the task's constants on the card, the kernels' shared-memory
@@ -69,6 +74,7 @@ import torch
 from judo_tpu_torch.parallel.mesh import same_device
 from judo_tpu_torch.parallel.shards import batch_first, join_buffers, join_shards, launch_shards, shard_blocks
 from judo_tpu_torch.physics.fused_rollout import tallied_launches
+from judo_tpu_torch.utils.profiling import span
 
 # The carried solver state's fields that are tensors (or trees of them); the
 # generator stays with the controller that holds the carry.
@@ -244,25 +250,34 @@ class SolveGraph:
 
     def __call__(self, ctrl, carry, inputs) -> tuple[Any, Any]:
         """One solve of ``ctrl`` from ``carry`` on ``inputs``: -> (the new
-        carry, made of the entry's buffers; the outputs, cloned)."""
+        carry, made of the entry's buffers; the outputs, cloned). Its
+        ``dispatch.*`` spans go into the record of the solve ``ctrl``
+        dispatches (``ctrl._solve_spans``)."""
+        spans = ctrl._solve_spans
         with self.lock:
-            self._take(ctrl, carry)
-            self._copy_inputs(inputs)
-            draw_noise(ctrl, carry.generator, self.noise)
+            with span("dispatch.copy", spans):
+                self._take(ctrl, carry)
+                self._copy_inputs(inputs)
+            with span("dispatch.noise", spans):
+                draw_noise(ctrl, carry.generator, self.noise)
             if self.device.type == "cuda":
                 if not self.steps:
-                    self._capture(ctrl)
-                for step in self.steps:
-                    step()
+                    with span("dispatch.capture", spans):
+                        self._capture(ctrl)
+                with span("dispatch.replay", spans):
+                    for step in self.steps:
+                        step()
                 for wrapper, n in self.launches.items():
                     wrapper.launches += n
                 ctrl.last_shards = self.shards
                 outputs = self.outputs
             else:
-                outputs = self._step(ctrl)
-            outputs = type(outputs)(*(None if x is None else x.clone() for x in outputs))
-            handed = dataclasses.replace(carry, **{f: tree_map(lambda x: x, v) for f, v in self.carry.items()})
-            self._holder = (weakref.ref(ctrl), handed)
+                with span("dispatch.replay", spans):
+                    outputs = self._step(ctrl)
+            with span("dispatch.readback", spans):
+                outputs = type(outputs)(*(None if x is None else x.clone() for x in outputs))
+                handed = dataclasses.replace(carry, **{f: tree_map(lambda x: x, v) for f, v in self.carry.items()})
+                self._holder = (weakref.ref(ctrl), handed)
             return handed, outputs
 
     def close(self) -> None:
