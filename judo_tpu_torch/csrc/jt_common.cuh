@@ -343,6 +343,14 @@ HD float tpow(float x, float y) { return powf(x, y); }
 HD double tpow(double x, double y) { return pow(x, y); }
 template <typename T> HD T tmax(T a, T b) { return a > b ? a : b; }
 template <typename T> HD T tmin(T a, T b) { return a < b ? a : b; }
+// The index of x's lowest set bit (x nonzero).
+HD int lowest_bit(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
 template <typename T> HD T tclip(T x, T lo, T hi) { return tmin(tmax(x, lo), hi); }
 template <typename T> HD T tsign(T x) { return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0)); }
 template <typename T> HD T trsqrt(T x) { return T(1) / tsqrt(x); }

@@ -169,8 +169,8 @@ HD void limit_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li, co
 
 // Constraint rows (masked by activity), and b = J qacc_smooth - aref. Lanes
 // over the rows before the contacts (joint equalities, joint limits), then
-// over contact slots (each writes its own 3 or 4 rows), then over rows for
-// the masking and b.
+// over contact slots (each writes its own 3 or 4 rows, only on the dofs that
+// move one of its bodies), then over rows for the masking and b.
 template <typename T>
 HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   const Lane<T> w = c.w;
@@ -218,21 +218,28 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
       cross3(arm2, dirs[g], w2[g]);
     }
     const T mu = sF[0];
-    for (int v = 0; v < nv; ++v) {
-      const int64_t cd = c.S.cdof + 6 * v;
-      T jg[3];
-      for (int g = 0; g < 3; ++g) {
-        const T lin = w[cd + 3] * dirs[g][0] + w[cd + 4] * dirs[g][1] + w[cd + 5] * dirs[g][2];
-        const T ang1 = w[cd] * w1[g][0] + w[cd + 1] * w1[g][1] + w[cd + 2] * w1[g][2];
-        const T ang2 = w[cd] * w2[g][0] + w[cd + 1] * w2[g][1] + w[cd + 2] * w2[g][2];
-        jg[g] = T(mask2[v]) * (lin + ang2) - T(mask1[v]) * (lin + ang1);
-      }
-      const T jf[4] = {pyr ? jg[0] + mu * jg[1] : jg[0], pyr ? jg[0] - mu * jg[1] : jg[1],
-                       pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
-      for (int f = 0; f < nrow; ++f) {
-        const int r = pyr ? nnc + 4 * ci + f : nnc + f * nc + ci;
-        c.J[r * ld + v] = jf[f];
-        vel[f] = vel[f] + jf[f] * qvel[v];
+    // the dofs that move one of the bodies, 32 at a time as bits: each lane
+    // walks only its slot's dofs; the rows stay zero on the others (rollout_init)
+    for (int v0 = 0; v0 < nv; v0 += 32) {
+      uint32_t moving = 0;
+      for (int v = v0; v < nv && v < v0 + 32; ++v) moving |= uint32_t(mask1[v] | mask2[v]) << (v - v0);
+      for (; moving; moving &= moving - 1) {
+        const int v = v0 + lowest_bit(moving);
+        const int64_t cd = c.S.cdof + 6 * v;
+        T jg[3];
+        for (int g = 0; g < 3; ++g) {
+          const T lin = w[cd + 3] * dirs[g][0] + w[cd + 4] * dirs[g][1] + w[cd + 5] * dirs[g][2];
+          const T ang1 = w[cd] * w1[g][0] + w[cd + 1] * w1[g][1] + w[cd + 2] * w1[g][2];
+          const T ang2 = w[cd] * w2[g][0] + w[cd + 1] * w2[g][1] + w[cd + 2] * w2[g][2];
+          jg[g] = T(mask2[v]) * (lin + ang2) - T(mask1[v]) * (lin + ang1);
+        }
+        const T jf[4] = {pyr ? jg[0] + mu * jg[1] : jg[0], pyr ? jg[0] - mu * jg[1] : jg[1],
+                         pyr ? jg[0] + mu * jg[2] : jg[2], jg[0] - mu * jg[2]};
+        for (int f = 0; f < nrow; ++f) {
+          const int r = pyr ? nnc + 4 * ci + f : nnc + f * nc + ci;
+          c.J[r * ld + v] = jf[f];
+          vel[f] = vel[f] + jf[f] * qvel[v];
+        }
       }
     }
     for (int f = 0; f < nrow; ++f) {
@@ -493,11 +500,13 @@ HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work, T* 
 }
 
 // Load rollout b's start state, warm-start forces (zeros when f0 is null)
-// and a probe of ones.
+// and a probe of ones, and zero J: a contact row's entries on the dofs that
+// move neither of its bodies stay zero, since the assembly never writes them.
 template <typename T>
 HD void rollout_init(const Ctx<T>& c, const T* qpos0, const T* qvel0, const T* f0, int b) {
   T* const w = c.w.p;
   const int64_t B = c.s.B;
+  Warp::for_each((int)c.S.jsize, [&](int k) { c.J[k] = T(0); });
   Warp::for_each(c.s.nq, [&](int k) { w[c.S.qpos + k] = qpos0[k * B + b]; });
   Warp::for_each(c.s.nv, [&](int k) { w[c.S.qvel + k] = qvel0[k * B + b]; });
   Warp::for_each(c.s.nefc, [&](int r) {
