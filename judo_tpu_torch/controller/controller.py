@@ -534,7 +534,9 @@ class Controller:
         ``latency_ms``: from this call's entry to the end of the solve's
         ``publish`` span, when ``action(t)`` starts to read the new plan.
         ``last_plan_timing`` holds this call's split, in ms, from the same
-        spans: prep (``prep.*``: host staging and the solve cache's lookup),
+        spans: prep (``prep.inputs`` and ``prep.lookup``: host staging, with
+        the task's ``pre_rollout`` inside it as ``prep.task``, and the solve
+        cache's lookup),
         device (``dispatch.*``: the entry's copies, noise draws and graph
         replay, and the mirror's copy queued behind it, which return before
         the card has run the solve), sync (the rest of the call: publishing
@@ -556,7 +558,7 @@ class Controller:
         solve_id, spans = self.solves_dispatched, {}
         with span("plan", spans, args=solve_id) as plan:
             self._plan(solve_id, spans, plan.t0)
-        prep = sum(ms for name, ms in spans.items() if name.startswith("prep."))
+        prep = spans["prep.inputs"] + spans["prep.lookup"]
         device = sum(ms for name, ms in spans.items() if name.startswith("dispatch."))
         total = spans["plan"]
         self.last_plan_timing = {"prep_ms": prep, "device_ms": device, "sync_ms": total - prep - device,
@@ -575,7 +577,7 @@ class Controller:
             self._enforce_cubic_min_nodes()
             self._check_mesh()
             self._sync_state_shapes()
-            merged, inputs = self._solve_inputs()
+            merged, inputs = self._solve_inputs(spans)
         with span("prep.lookup", spans):
             entry = self._get_solve(inputs)
         self._solve_spans = spans
@@ -603,10 +605,13 @@ class Controller:
                 while len(self._consume_futures) > 2:  # bound the backlog (controller.py:706-707)
                     self._consume_futures.pop(0).result()
 
-    def _solve_inputs(self) -> tuple[dict, SolveInputs]:
+    def _solve_inputs(self, spans: dict | None = None) -> tuple[dict, SolveInputs]:
         """(the task's and the system's metadata, the next solve's inputs):
-        the state, time and metadata staged, the rest kept on the device."""
-        metadata = {**self.system_metadata, **self.task.pre_rollout(self.current_state)}
+        the state, time and metadata staged, the rest kept on the device. The
+        task's ``pre_rollout`` is the ``prep.task`` span, added to ``spans`` where given."""
+        with span("prep.task", spans):
+            task_metadata = self.task.pre_rollout(self.current_state)
+        metadata = {**self.system_metadata, **task_metadata}
         task_params, opt_params, norm_params, ctrl_bounds = self._device_params()
         spline_ts, rollout_ts = self._device_times()
         staged = {k: self._stage(v) for k, v in metadata.items() if not isinstance(v, str)}

@@ -16,6 +16,8 @@ solve_graph.py``), each added to the record of the solve it serves:
   it; its trace event's args carry the solve's id;
 - ``prep.inputs``: the checks, the metadata, the parameters and time grids
   kept on the card, the pinned staging of the state and time;
+- ``prep.task``: inside ``prep.inputs``, the task's ``pre_rollout``, whose
+  metadata (fr3_pick's phase) the solve reads;
 - ``prep.lookup``: the shape signature and the solve cache's lookup, insert or
   evict;
 - ``dispatch.copy``, ``dispatch.noise``: the solve cache's entry copying the

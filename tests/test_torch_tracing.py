@@ -4,12 +4,18 @@ solve, in solve order, with every span that ran; the children inside their
 parent; ``latency_ms`` from the dispatching call's entry to the end of the
 solve's publish; ``last_plan_timing`` made of the same spans; no
 ``record_function`` without a profiler, and the spans nested in the
-profiler's trace while one records; the log's bound.
+profiler's trace while one records; the log's bound; the task's
+``pre_rollout`` as ``prep.task`` inside ``prep.inputs``; and the benchmark's
+readers of that span and of the calls that outlast the control period,
+which read nothing where a program lacks the records.
 
 Each controller plans cartpole with PS (8 rollouts, a 0.2 s horizon) in
 float64."""
 
 import json
+import time
+from collections import deque
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,12 +23,16 @@ import torch
 
 from judo_tpu_torch.controller import make_controller
 from judo_tpu_torch.controller.controller import Controller
+from judo_tpu_torch.tasks.cartpole import Cartpole
 from judo_tpu_torch.utils import profiling
+from portbench import cells
 
 CALLS = 5
 # the spans of one solve on the CPU (no capture: there is no graph), by pipeline depth
-SPANS = {"plan", "prep.inputs", "prep.lookup", "dispatch.copy", "dispatch.noise", "dispatch.replay",
+SPANS = {"plan", "prep.inputs", "prep.task", "prep.lookup", "dispatch.copy", "dispatch.noise", "dispatch.replay",
          "dispatch.readback", "post_rollout", "wait", "publish"}
+# spans that run inside another span of the same solve, and their parents
+NESTED = {"prep.task": "prep.inputs"}
 EXPECTED = {0: SPANS, 2: SPANS | {"sync.backlog"}}
 
 
@@ -69,8 +79,10 @@ def test_children_within_their_parent(ran):
     depth, c, _ = ran
     for r in c.plan_log:
         s = r["spans"]
-        inside = [k for k in s if k != "plan" and (depth == 0 or k.split(".")[0] in ("prep", "dispatch", "sync"))]
+        inside = [k for k in s if k != "plan" and k not in NESTED
+                  and (depth == 0 or k.split(".")[0] in ("prep", "dispatch", "sync"))]
         assert sum(s[k] for k in inside) <= s["plan"]
+        assert all(s[k] <= s[parent] for k, parent in NESTED.items())
         assert s["wait"] + s["publish"] <= r["latency_ms"]
 
 
@@ -78,7 +90,7 @@ def test_latency_covers_the_dispatching_call(ran):
     depth, c, _ = ran
     for r in c.plan_log:
         s = r["spans"]
-        dispatched = sum(ms for k, ms in s.items() if k.startswith(("prep.", "dispatch.")))
+        dispatched = sum(ms for k, ms in s.items() if k.startswith(("prep.", "dispatch.")) and k not in NESTED)
         assert r["latency_ms"] >= dispatched
         if depth == 0:  # published inside the call that took its state
             assert r["latency_ms"] <= s["plan"]
@@ -134,7 +146,7 @@ def test_spans_nest_in_the_profilers_trace(tmp_path):
     for p in plans:
         lo, hi = p["ts"], p["ts"] + p["dur"]
         inner = {e["name"] for e in events if e["tid"] == p["tid"] and lo <= e["ts"] and e["ts"] + e["dur"] <= hi}
-        assert {"judo.prep.inputs", "judo.prep.lookup"} <= inner
+        assert {"judo.prep.inputs", "judo.prep.task", "judo.prep.lookup"} <= inner
         assert {"judo.dispatch.copy", "judo.dispatch.noise", "judo.dispatch.replay", "judo.dispatch.readback"} <= inner
         assert {"judo.post_rollout", "judo.wait", "judo.publish"} <= inner  # depth 0: published inside the call
 
@@ -144,3 +156,92 @@ def test_log_stays_at_its_bound(monkeypatch):
     monkeypatch.setattr(Controller, "PLAN_LOG_MAX", 3)
     c, _ = _run(0, calls=5)
     assert c.plan_log.maxlen == 3 and [r["id"] for r in c.plan_log] == [2, 3, 4]
+
+
+def test_task_prep_is_counted_within_prep_inputs(monkeypatch):
+    """A slow ``pre_rollout`` shows in ``prep.task``, inside ``prep.inputs``,
+    and in ``prep_ms`` once."""
+    pre_rollout = Cartpole.pre_rollout
+
+    def slow(self, state):
+        time.sleep(0.02)
+        return pre_rollout(self, state)
+
+    monkeypatch.setattr(Cartpole, "pre_rollout", slow)
+    c, timings = _run(0, calls=2)
+    for t, r in zip(timings, c.plan_log):
+        s = r["spans"]
+        assert 20.0 <= s["prep.task"] <= s["prep.inputs"]
+        assert t["prep_ms"] == pytest.approx(s["prep.inputs"] + s["prep.lookup"], rel=1e-12)
+
+
+def _window(metric: str, c, calls: int):
+    """A reader's hooks around ``calls`` calls of the controller ``c``."""
+    reader = cells.metric_reader(metric)
+    ctx = SimpleNamespace(store={}, program=c, calls=list(range(calls)))
+    reader.before_window(ctx)
+    for _ in range(calls):
+        c.update_action()
+    reader.after_window(ctx)
+    return reader.read(ctx)
+
+
+def test_period_overruns_count_calls_slower_than_the_period(monkeypatch):
+    """``overrun_share`` over windows of a controller's calls: every call
+    outlasts a 1 us period and none a 1e6 ms one; at 2 Hz a call slowed past
+    500 ms counts and a fast one does not."""
+    c = _controller(0)
+    c.current_state = np.zeros(4)
+    c.controller_cfg.control_freq = 1e6
+    assert _window("overrun_share", c, 2) == 100.0
+    c.controller_cfg.control_freq = 1e-3
+    assert _window("overrun_share", c, 2) == 0.0
+    pre_rollout, slowed = Cartpole.pre_rollout, []
+
+    def slow_once(self, state):
+        if not slowed:
+            slowed.append(time.sleep(0.6))
+        return pre_rollout(self, state)
+
+    monkeypatch.setattr(Cartpole, "pre_rollout", slow_once)
+    c.controller_cfg.control_freq = 2.0
+    assert _window("overrun_share", c, 2) == 50.0
+    assert [r["spans"]["plan"] > 500.0 for r in list(c.plan_log)[-2:]] == [True, False]
+
+
+def _read(metric: str, program, first, last, calls):
+    """A reader's hooks around a window of ``calls`` calls, with the program's
+    ``solves_dispatched`` set to ``first`` before and ``last`` after it (where
+    the program keeps it)."""
+    reader = cells.metric_reader(metric)
+    for k, v in first.items():
+        setattr(program, k, v)
+    ctx = SimpleNamespace(store={}, program=program, calls=list(range(calls)))
+    reader.before_window(ctx)
+    for k, v in last.items():
+        setattr(program, k, v)
+    reader.after_window(ctx)
+    return reader.read(ctx)
+
+
+AT_20_HZ = SimpleNamespace(control_freq=20.0)  # a 50 ms period
+
+
+def test_task_prep_and_overrun_readers():
+    log = deque({"id": i, "spans": {"prep.task": 0.01 * i}, "latency_ms": 1.0} for i in range(10))
+    program = SimpleNamespace(plan_log=log, controller_cfg=AT_20_HZ)
+    got = _read("task_prep_ms", program, {"solves_dispatched": 2}, {"solves_dispatched": 6}, 4)
+    assert got == pytest.approx(np.mean([0.01 * i for i in range(2, 6)]))
+    log = deque({"id": i, "spans": {"plan": 10.0 * i}, "latency_ms": 1.0} for i in range(10))
+    program = SimpleNamespace(plan_log=log, controller_cfg=AT_20_HZ)
+    got = _read("overrun_share", program, {"solves_dispatched": 2}, {"solves_dispatched": 8}, 6)
+    assert got == pytest.approx(100.0 * 2 / 6)  # 60 and 70 ms of 20 to 70
+
+
+def test_readers_read_nothing_without_the_span_or_counter():
+    """A program without ``prep.task`` in its records, or without records at all, gives None."""
+    log = deque({"id": i, "spans": {"prep.inputs": 0.1}, "latency_ms": 1.0} for i in range(10))
+    assert _read("task_prep_ms", SimpleNamespace(plan_log=log), {"solves_dispatched": 2},
+                 {"solves_dispatched": 6}, 4) is None
+    assert _read("task_prep_ms", SimpleNamespace(), {}, {}, 4) is None  # no records at all
+    assert _read("overrun_share", SimpleNamespace(controller_cfg=AT_20_HZ), {}, {}, 4) is None
