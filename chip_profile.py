@@ -2,11 +2,13 @@
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 chip_profile.py stages   # per-stage split of K1 (leap, fr3_pick) and K2 (Spot)
+    python3 chip_profile.py stages [W]  # per-stage split of K1 (leap, fr3_pick) and K2 (Spot)
     python3 chip_profile.py unroll   # the kernels against copies with loops unrolled or not
     python3 chip_profile.py horizon  # full-horizon kernel vs plain, and whole solve sequences
     python3 chip_profile.py inline   # the kernels against copies inlined otherwise
-    python3 chip_profile.py compare DIR  # the kernels against those of another checkout
+    python3 chip_profile.py compare DIR [W]  # the kernels against those of another checkout
+    python3 chip_profile.py warps [8]  # K1 at 1 and 4 (and 8) warps per rollout
+    python3 chip_profile.py bitwise DIR  # the kernels' outputs against another checkout's, bitwise
     python3 chip_profile.py layout   # the kernels against a copy that picks J's place at run time
     python3 chip_profile.py dispatch # where a pipelined planner's host waits
 
@@ -16,10 +18,13 @@ are), build it with nvcc and run it at the paths' shapes in float32: leap
 B 320, T 100; Spot R 24, T 100 policy ticks x 2 physics steps; fr3_pick B 64,
 T 252.
 
-- stages: lane 0 of each warp reads clock64 between the stages of a physics
-  step (after a __syncwarp, so a stage ends when its slowest lane does) and
-  around each policy tick, and adds the cycles to per-stage counters; the
-  split is each stage's share of the summed cycles.
+- stages: thread 0 of each block reads clock64 between the stages of a
+  physics step (after the block's barrier, __syncwarp in a block of one
+  warp, so a stage ends when its slowest thread does) and around each policy
+  tick, and adds the cycles to per-stage counters; the split is each stage's
+  share of the summed cycles. K1 runs at W warps per rollout where W is
+  given, else at the W the wrapper picks (fused_rollout.rollout_warps: leap's
+  320 rollouts 1, fr3_pick's 64 4).
 - unroll: times the checkout's kernels against two copies, one with the
   MLP's inner loop left rolled and one with the inner loops of the J passes
   (J^T x over rows, J y over dofs) unrolled by 8, in the order base, A, B, B,
@@ -43,11 +48,24 @@ T 252.
   dispatch and total host time of each of the first 25 calls; then how many
   small launches the host can queue behind a long kernel before a launch
   waits (torch.cuda._sleep holds the card).
-- compare DIR: K1 (leap B 320, T 100; fr3_pick B 64, T 252) and K2 (Spot R
-  24, T 100 x 2, and with no physics substeps) of the checkout DIR (an older
-  one, unpacked with git archive) against this checkout's, each timed by its
-  own chip_profile.py's main_shapes in a process of its own, in the order
-  DIR, this, this, DIR. Both trees' kernels are built first, in parallel.
+- compare DIR [W]: K1 (leap B 320, T 100; fr3_pick B 64, T 252) and K2 (Spot
+  R 24, T 100 x 2, and with no physics substeps) of the checkout DIR (an
+  older one, unpacked with git archive) against this checkout's, each timed
+  by its own chip_profile.py's main_shapes in a process of its own, in the
+  order DIR, this, this, DIR; with W, this checkout's K1 at W warps per
+  rollout (DIR's at its own). Both trees' kernels are built first, in
+  parallel.
+- bitwise DIR: the outputs of K1 (leap B 320, T 100; fr3_pick B 64, T 252),
+  K2 (spot_navigate and the three object scenes, R 24, T 100 x 2) and K3
+  (leap at B 1 with the model's own iterations, and at B 320 with 8),
+  float32 and float64, made by the checkout DIR and by this one, each in a
+  process of its own from its own chip_smoke.py's inputs, then compared with
+  torch.equal; where they differ the largest difference is printed.
+- warps [8]: K1 on leap (B 320, 64 and 32, T 100), fr3_pick (B 64 and 320,
+  T 252), cylinder_push (B 32, T 52) and the check scene (B 64, T 50) at
+  each W the wrapper builds (1, 4), in the order 1, 4, 4, 1 within one
+  process; with 8, also at W = 8 (1, 4, 8, 8, 4, 1), from a copy that builds
+  it. The sweep behind the rule that picks W (fused_rollout.rollout_warps).
 """
 
 from __future__ import annotations
@@ -70,17 +88,23 @@ static __device__ unsigned long long jt_stage_cycles[16];
 #endif
 struct StageClock {
   long long t = 0;
+  HD void sync() {
+#ifdef __CUDA_ARCH__
+    if (blockDim.x > 32) __syncthreads();
+    else __syncwarp();
+#endif
+  }
   HD void start() {
 #ifdef __CUDA_ARCH__
-    __syncwarp();
+    sync();
     t = clock64();
 #endif
   }
   HD void mark(int k) {
 #ifdef __CUDA_ARCH__
-    __syncwarp();
+    sync();
     const long long n = clock64();
-    if ((threadIdx.x & 31) == 0) atomicAdd(&jt_stage_cycles[k], (unsigned long long)(n - t));
+    if (threadIdx.x == 0) atomicAdd(&jt_stage_cycles[k], (unsigned long long)(n - t));
     t = n;
 #endif
   }
@@ -97,6 +121,10 @@ extern "C" int jt_stage_{name}(unsigned long long* out, int reset) {{
 }}
 '''
 
+# The files that build a kernel, and the tag of each one's stage reader; K1 at
+# W = 4 is built in fused_rollout_w4.cu.
+STAGE_FILES = {"fused_rollout.cu": "rollout", "fused_rollout_w4.cu": "rollout_w4", "fused_policy_rollout.cu": "policy"}
+
 MLP_LOOP = "      for (int i = 0; i < ni; ++i) acc = acc + W[(int64_t)i * no + r] * w[in + i];"
 MLP_PRAGMA = "#ifdef __CUDA_ARCH__\n#pragma unroll 8\n#endif\n"
 
@@ -108,21 +136,21 @@ PATCHES = {
          "HD void dual_solve(const Ctx<T>& c, StageClock& clk) {\n"),
         ("jt_step.cuh", "  const T step = T(1) / tmax(L, T(kMinval));\n",
          "  const T step = T(1) / tmax(L, T(kMinval));\n  clk.mark(5);\n"),
-        ("jt_step.cuh", "  const T h = c.mf[0];\n  Warp::single([&] {\n    kinematics(c, qpos);\n",
-         "  const T h = c.mf[0];\n  StageClock clk;\n  clk.start();\n  Warp::single([&] {\n    kinematics(c, qpos);\n"),
+        ("jt_step.cuh", "  const T h = c.mf[0];\n  G::single([&] {\n    kinematics(c, qpos);\n",
+         "  const T h = c.mf[0];\n  StageClock clk;\n  clk.start();\n  G::single([&] {\n    kinematics(c, qpos);\n"),
         ("jt_step.cuh", "    smooth_force(c, qpos, qvel, ctrl);\n  });\n",
          "    smooth_force(c, qpos, qvel, ctrl);\n  });\n  clk.mark(0);\n"),
-        ("jt_step.cuh", "  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n",
-         "  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n  clk.mark(1);\n"),
-        ("jt_step.cuh", "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n",
-         "  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });\n  clk.mark(2);\n"),
-        ("jt_step.cuh", "  distance_sensors(c, sens_out);\n", "  distance_sensors(c, sens_out);\n  clk.mark(11);\n"),
-        ("jt_step.cuh", "    narrowphase(c);\n    assemble(c, qpos, qvel);\n    dual_solve(c);\n",
-         "    narrowphase(c);\n    clk.mark(3);\n    assemble(c, qpos, qvel);\n    clk.mark(4);\n"
-         "    dual_solve(c, clk);\n    clk.mark(6);\n"),
+        ("jt_step.cuh", "  island_mv<G>(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n",
+         "  island_mv<G>(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);\n  clk.mark(1);\n"),
+        ("jt_step.cuh", "  G::single([&] { sensors(c, qpos, qvel, sens_out); });\n",
+         "  G::single([&] { sensors(c, qpos, qvel, sens_out); });\n  clk.mark(2);\n"),
+        ("jt_step.cuh", "  distance_sensors<G>(c, sens_out);\n", "  distance_sensors<G>(c, sens_out);\n  clk.mark(11);\n"),
+        ("jt_step.cuh", "    narrowphase<G>(c);\n    assemble<G>(c, qpos, qvel);\n    dual_solve<G>(c);\n",
+         "    narrowphase<G>(c);\n    clk.mark(3);\n    assemble<G>(c, qpos, qvel);\n    clk.mark(4);\n"
+         "    dual_solve<G>(c, clk);\n    clk.mark(6);\n"),
         ("jt_step.cuh", "  // implicit-in-velocity damping", "  clk.mark(7);\n  // implicit-in-velocity damping"),
-        ("jt_step.cuh", "  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });\n",
-         "  clk.mark(8);\n  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });\n  clk.mark(9);\n"),
+        ("jt_step.cuh", "  G::single([&] { integrate_pos(c, qpos, qvel, h); });\n",
+         "  clk.mark(8);\n  G::single([&] { integrate_pos(c, qpos, qvel, h); });\n  clk.mark(9);\n"),
         ("jt_policy.cuh", "    policy_tick(c, p, P, cmd_t);\n",
          "    StageClock clk;\n    clk.start();\n    policy_tick(c, p, P, cmd_t);\n    clk.mark(10);\n"),
     ],
@@ -136,9 +164,13 @@ PATCHES = {
         ("jt_step.cuh", "  c.J = JG ? jslab + (int64_t)b * c.S.jsize : work + c.S.J;",
          "  c.J = s.jglobal ? jslab + (int64_t)b * c.S.jsize : work + c.S.J;"),
     ],
+    "warps 8": [
+        ("fused_rollout.cu", "    case 4: return rollout_kernel_at<T, JG, 4>();\n",
+         "    case 4: return rollout_kernel_at<T, JG, 4>();\n    case 8: return fused_rollout_kernel<T, JG, 8>;\n"),
+    ],
     "J passes unrolled": [
-        ("jt_step.cuh", "    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];",
-         "#pragma unroll 8\n    for (int r = 0; r < ne; ++r) {\n      const T j = J[r * ld + v];"),
+        ("jt_step.cuh", "      for (int r = 0; r < ne; ++r) {\n        const T j = J[r * ld + v];",
+         "#pragma unroll 8\n      for (int r = 0; r < ne; ++r) {\n        const T j = J[r * ld + v];"),
         ("jt_step.cuh", "    for (int v = 0; v < nv; ++v) {\n      const T j = J[r * ld + v];",
          "#pragma unroll 8\n    for (int v = 0; v < nv; ++v) {\n      const T j = J[r * ld + v];"),
     ],
@@ -163,16 +195,18 @@ def use_sources(variant: str | None) -> None:
             if old not in text:
                 raise RuntimeError(f"patch {variant!r}: {old[:50]!r} not found in {name}")
             (dst / name).write_text(text.replace(old, new, 1))
-        if variant == "stages":
-            for name, tag in (("fused_rollout.cu", "rollout"), ("fused_policy_rollout.cu", "policy")):
+        if variant == "stages":  # the counters are per file: one reader in each file that builds a kernel
+            for name, tag in STAGE_FILES.items():
                 (dst / name).write_text((dst / name).read_text() + READ.format(name=tag))
         _build.CSRC, _build.BUILD_DIR = dst, dst.parent / f"{dst.name}_build"
     _build._LOADED.clear()
     _build.load("cuda")
 
 
-def main_shapes():
-    """Launchers of K1 (leap) and K2 (Spot, and Spot with no physics substeps)."""
+def main_shapes(warps: int | None = None):
+    """Launchers of K1 (leap; fr3_pick where the checkout has it) at
+    ``warps`` warps per rollout (None: the wrapper's pick) and K2 (Spot, and
+    Spot with no physics substeps)."""
     import torch
 
     import chip_smoke as cs
@@ -187,8 +221,9 @@ def main_shapes():
     f0 = torch.zeros((fr.num_constraint_rows(m), cs.B_MAIN), dtype=f32, device="cuda")
     task = SpotNavigate(device="cuda", dtype=f32)
     args = cs.spot_inputs(task, cs.R_SPOT, cs.T_FULL, seed=9, dtype=f32, device="cuda")
+    at = {} if warps is None else {"warps": warps}
     shapes = {
-        "K1": lambda: fr.fused_rollout(m, qp, qv, ct, f0, 1, 8),
+        "K1": lambda: fr.fused_rollout(m, qp, qv, ct, f0, 1, 8, **at),
         "K2": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 2, 8),
         "K2 policy only": lambda: pr.fused_policy_rollout(task.planning_model, task.policy, *args, 0, 8),
     }
@@ -196,11 +231,11 @@ def main_shapes():
         m3 = cs.scene_model("fr3", f32)
         qp3, qv3, ct3 = cs.scene_inputs("fr3", m3, 64, 252, seed=10, dtype=f32, device="cuda")
         f3 = torch.zeros((fr.num_constraint_rows(m3), 64), dtype=f32, device="cuda")
-        shapes["K1 fr3"] = lambda: fr.fused_rollout(m3, qp3, qv3, ct3, f3, 1, 8)
+        shapes["K1 fr3"] = lambda: fr.fused_rollout(m3, qp3, qv3, ct3, f3, 1, 8, **at)
     return shapes
 
 
-def stages(card: str) -> None:
+def stages(card: str, warps: str | None = None) -> None:
     import torch
 
     import chip_smoke as cs
@@ -208,24 +243,30 @@ def stages(card: str) -> None:
 
     use_sources("stages")
     lib = _build.load("cuda")
-    run = main_shapes()
+    run = main_shapes(None if warps is None else int(warps))
+    at = "the wrapper's W" if warps is None else f"W={warps}"
     buf = (ctypes.c_ulonglong * 16)()
-    for kernel, tag, shape in (("K1", "rollout", "leap B 320 T 100"), ("K2", "policy", "spot R 24 T 100 x 2"),
-                               ("K1 fr3", "rollout", "fr3_pick B 64 T 252")):
-        read = getattr(lib, f"jt_stage_{tag}")
+    k1 = [tag for tag in STAGE_FILES.values() if tag != "policy"]
+    for kernel, tags, shape in (("K1", k1, "leap B 320 T 100"), ("K2", ["policy"], "spot R 24 T 100 x 2"),
+                                ("K1 fr3", k1, "fr3_pick B 64 T 252")):
+        reads = [getattr(lib, f"jt_stage_{tag}") for tag in tags]
         run[kernel]()
         torch.cuda.synchronize()
-        if read(buf, 1) != 0:
+        if any(read(buf, 1) != 0 for read in reads):
             raise RuntimeError("resetting the stage counters failed")
         run[kernel]()
         torch.cuda.synchronize()
-        if read(buf, 0) != 0:
-            raise RuntimeError("reading the stage counters failed")
+        cycles = [0] * 16
+        for read in reads:
+            if read(buf, 0) != 0:
+                raise RuntimeError("reading the stage counters failed")
+            cycles = [a + b for a, b in zip(cycles, buf)]
+        buf[:] = cycles
         total = sum(buf[: len(STAGES)])
-        print(f"stage split {kernel} {shape} f32 (clock64 marks in a patched copy) on {card}:")
+        print(f"stage split {kernel} {shape} f32 (K1 at {at}; clock64 marks in a patched copy) on {card}:")
         for k, name in enumerate(STAGES):
             if buf[k]:
-                print(f"  {name}: {100 * buf[k] / total:.1f} % ({buf[k]} cycles summed over lane 0 of all warps)")
+                print(f"  {name}: {100 * buf[k] / total:.1f} % ({buf[k]} cycles summed over thread 0 of all blocks)")
         print(f"  {kernel} with the marks: {cs.event_ms(run[kernel], 3):.3f} ms", flush=True)
 
 
@@ -301,26 +342,113 @@ def dispatch(card: str) -> None:
               flush=True)
 
 
-# Run in a checkout's root: time that checkout's kernels at main_shapes.
+# Run in a checkout's root: time that checkout's kernels at main_shapes({args}).
 TIME_TREE = """
 import chip_profile as p, chip_smoke as cs
-reps = {"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}
-print(", ".join(f"{k} {cs.event_ms(fn, reps[k]):.3f} ms" for k, fn in p.main_shapes().items()), flush=True)
+reps = {{"K1": 10, "K2": 5, "K2 policy only": 5, "K1 fr3": 5}}
+print(", ".join(f"{{k}} {{cs.event_ms(fn, reps[k]):.3f}} ms" for k, fn in p.main_shapes({args}).items()), flush=True)
 """
 
 
-def compare(card: str, other: str) -> None:
-    trees = {"other": Path(other).resolve(), "this": ROOT}
+# Run in a checkout's root: save that checkout's kernel outputs to argv[1].
+OUTPUTS_TREE = """
+import sys
+import torch
+import chip_smoke as cs
+from judo_tpu_torch.physics import fused_rollout as fr, policy_rollout as pr
+out = {}
+for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+    for scene, B, T, seed in (("leap", 320, cs.T_FULL, 4), ("fr3", 64, 252, 10)):
+        m = cs.scene_model(scene, dt)
+        qp, qv, ct = cs.scene_inputs(scene, m, B, T, seed=seed, dtype=dt, device="cuda")
+        f0 = torch.zeros((fr.num_constraint_rows(m), B), dtype=dt, device="cuda")
+        out[f"K1 {scene} B {B} T {T} {name}"] = fr.fused_rollout(m, qp, qv, ct, f0, 1, 8)
+    for scene in ("spot_navigate", *cs.OBJECT_TASKS):
+        task = cs.spot_task(scene, dt)
+        make = cs.spot_inputs if scene == "spot_navigate" else cs.object_inputs
+        args = make(task, cs.R_SPOT, cs.T_FULL, seed=11, dtype=dt, device="cuda")
+        out[f"K2 {scene} R {cs.R_SPOT} T {cs.T_FULL} x 2 {name}"] = pr.fused_policy_rollout(
+            task.planning_model, task.policy, *args, 2, 8)
+    m = cs.scene_model("leap", dt)
+    for B, iterations in ((1, None), (320, 8)):
+        qp, qv, ct = cs.scene_inputs("leap", m, B, 1, seed=6, dtype=dt, device="cuda")
+        f = torch.zeros((fr.num_constraint_rows(m), B), dtype=dt, device="cuda")
+        out[f"K3 leap B {B} {name}"] = fr.physics_step(m, qp, qv, ct[0], f, iterations)
+torch.cuda.synchronize()
+torch.save({k: [x.cpu() for x in v] for k, v in out.items()}, sys.argv[1])
+"""
+
+
+def _built(trees: dict) -> dict:
+    """``trees`` (name -> checkout), each checkout's kernels built first, in parallel."""
     build = "from judo_tpu_torch import _build; _build.load('cuda')"
     procs = {k: subprocess.Popen([sys.executable, "-c", build], cwd=d) for k, d in trees.items()}
     for k, proc in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"building the kernels of {trees[k]} failed")
+    return trees
+
+
+def bitwise(card: str, other: str) -> None:
+    import torch
+
+    trees = _built({"other": Path(other).resolve(), "this": ROOT})
+    saved = {k: ROOT / "build" / f"bitwise_{k}.pt" for k in trees}
+    for k, d in trees.items():
+        out = subprocess.run([sys.executable, "-c", OUTPUTS_TREE, str(saved[k])], cwd=d, capture_output=True,
+                             text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"the outputs of {d} failed: {out.stderr[-2000:]}")
+    a, b = (torch.load(saved[k]) for k in ("other", "this"))
+    for key in a:
+        # bit for bit (a NaN of a diverged Spot rollout too, which == never equals)
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        same = all(x.shape == y.shape and torch.equal(x.view(bits[x.dtype]), y.view(bits[y.dtype]))
+                   for x, y in zip(a[key], b[key]))
+        diff = max(float((x - y).nan_to_num(float("inf")).abs().max()) for x, y in zip(a[key], b[key]))
+        print(f"bitwise {key}: {'equal' if same else f'differs, largest difference {diff:.3e}'} "
+              f"({trees['other']} against this checkout) on {card}", flush=True)
+
+
+def warps_sweep(card: str, eight: str | None = None) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from judo_tpu_torch.physics import fused_rollout as fr
+
+    widths = list(fr.ROLLOUT_WARPS)
+    if eight is not None:
+        use_sources("warps 8")
+        widths.append(8)
+    f32 = torch.float32
+    models = {s: cs.scene_model(s, f32) for s in ("leap", "fr3", "cylinder_push", "check")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs, picks = {}, []
+    for scene, B, T, reps in (("leap", 320, cs.T_FULL, 10), ("leap", 64, cs.T_FULL, 10), ("leap", 32, cs.T_FULL, 10),
+                              ("fr3", 64, 252, 5), ("fr3", 320, 252, 3), ("cylinder_push", 32, 52, 20),
+                              ("check", 64, 50, 20)):
+        m = models[scene]
+        qp, qv, ct = cs.scene_inputs(scene, m, B, T, seed=10, dtype=f32, device="cuda")
+        f0 = torch.zeros((fr.num_constraint_rows(m), B), dtype=f32, device="cuda")
+        runs[f"K1 {scene} B {B} T {T}"] = (reps, lambda w, a=(m, qp, qv, ct, f0): fr.fused_rollout(*a, 1, 8, warps=w))
+        rows = fr.num_constraint_rows(m)
+        picks.append(f"{scene} B {B} ({rows} rows) W={fr.rollout_warps(B, sms, rows)}")
+    print(f"warps: the rule picks {', '.join(picks)} on {card} ({sms} SMs)", flush=True)
+    for w in widths + widths[::-1]:
+        times = ", ".join(f"{k} {cs.event_ms(lambda fn=fn: fn(w), reps):.3f} ms" for k, (reps, fn) in runs.items())
+        print(f"warps W={w}: {times} f32 on {card}", flush=True)
+
+
+def compare(card: str, other: str, warps: str | None = None) -> None:
+    trees = _built({"other": Path(other).resolve(), "this": ROOT})
     for k in ("other", "this", "this", "other"):
-        out = subprocess.run([sys.executable, "-c", TIME_TREE], cwd=trees[k], capture_output=True, text=True)
+        args = "" if warps is None or k == "other" else str(int(warps))
+        script = TIME_TREE.format(args=args)
+        out = subprocess.run([sys.executable, "-c", script], cwd=trees[k], capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"timing {trees[k]} failed: {out.stderr[-2000:]}")
-        print(f"compare {k} ({trees[k]}): {out.stdout.strip()} f32 on {card}", flush=True)
+        at = f" K1 at W={args}" if args else ""
+        print(f"compare {k} ({trees[k]}){at}: {out.stdout.strip()} f32 on {card}", flush=True)
 
 
 def horizon(card: str) -> None:
@@ -384,10 +512,13 @@ def main() -> int:
     import chip_smoke as cs
 
     modes = {"stages": stages, "unroll": unroll, "inline": inline, "horizon": horizon, "compare": compare,
-             "layout": layout, "dispatch": dispatch}
+             "layout": layout, "dispatch": dispatch, "warps": warps_sweep, "bitwise": bitwise}
+    # the arguments each mode takes, the least and the most
+    nargs = {"stages": (0, 1), "compare": (1, 2), "bitwise": (1, 1), "warps": (0, 1)}
     args = sys.argv[2:]
-    if len(sys.argv) < 2 or sys.argv[1] not in modes or len(args) != (sys.argv[1] == "compare"):
-        print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}} (compare: DIR)", file=sys.stderr)
+    lo, hi = nargs.get(sys.argv[1], (0, 0)) if len(sys.argv) >= 2 else (0, 0)
+    if len(sys.argv) < 2 or sys.argv[1] not in modes or not lo <= len(args) <= hi:
+        print(f"usage: python3 chip_profile.py {{{'|'.join(modes)}}} (stages: [W]; compare: DIR [W]; bitwise: DIR; warps: [8])", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this run needs a CUDA GPU", file=sys.stderr)

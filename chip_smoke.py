@@ -117,10 +117,12 @@ without the final line):
      segment's window), idle share and kernel launches per solve are printed;
    - the mesh: make_controller(..., mesh=make_rollout_mesh(devices=[...])) over
      every visible card, or two shards on cuda:0 where one is visible, float32:
-     leap_cube + mppi (320 rollouts), spot_navigate + mppi and cylinder_push +
-     ps, each beside an unsharded twin: 8 solves (a tune after the third)
-     bitwise equal in published times, knots, rewards, traces and carry, the
-     kernel launched once per shard and optimizer iteration, then 10 timed
+     leap_cube + mppi (320 rollouts, and 64, whose shards run K1 at four
+     warps per rollout), spot_navigate + mppi and cylinder_push + ps, each
+     beside an unsharded twin: 8 solves (a tune after the third) bitwise
+     equal in published times, knots, rewards, traces and carry, the kernel
+     launched once per shard and optimizer iteration (K1 at the whole
+     batch's warps per rollout), then 10 timed
      solves of both in turns (plan p50 and p95, bytes between devices per
      solve, the entry's graphs and pool bytes); two shards on one card must
      plan leap within 1.15x the twin's p50 (their kernels overlap); a leap
@@ -246,7 +248,9 @@ SWITCH_R = {"leap_cube": 256, "cylinder_push": 40}
 # ran one after the other); the refused batch; the --mesh hybrid loop's
 # seconds; the two-wave leap batch and the multi-process solves, where two or
 # more cards are visible.
-MESH_TASKS = (("leap_cube", "mppi", B_MAIN), ("spot_navigate", "mppi", None), ("cylinder_push", "ps", None))
+# leap at 64 rollouts: K1's shards at four warps per rollout (fused_rollout.rollout_warps)
+MESH_TASKS = (("leap_cube", "mppi", B_MAIN), ("spot_navigate", "mppi", None), ("cylinder_push", "ps", None),
+              ("leap_cube", "mppi", 64))
 MESH_SOLVES, MESH_TUNE_AT, MESH_TIMED, MESH_OVERLAP_LIMIT = 8, 3, 10, 1.15
 MESH_REFUSED_R, MESH_LOOP_SECONDS, MESH_WAVES_R, MESH_RANK_SOLVES = 321, 3, 1056, 8
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
@@ -464,7 +468,8 @@ def split_distance_errs(m, err: dict, ref_sens, out_sens, plain64=None) -> None:
 def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap", T: int = T_CHECK) -> dict:
     import torch
 
-    from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows, rollout_lanes_reference
+    from judo_tpu_torch.physics.fused_rollout import (fused_rollout, num_constraint_rows, rollout_lanes_reference,
+                                                      rollout_warps, sm_count)
 
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
     m = scene_model(scene, dtype)
@@ -485,6 +490,7 @@ def k1_vs_plain(dtype_name: str, B: int = B_MAIN, scene: str = "leap", T: int = 
         d = torch.float64
         plain64 = rollout_lanes_reference(scene_model(scene, d), qp.to(d), qv.to(d), ct[1:].to(d), f0.to(d), 1, 8)[2]
     split_distance_errs(m, err, ref[2], out[2], plain64)
+    err["warps"] = rollout_warps(B, sm_count("cuda"), num_constraint_rows(m))  # the W fused_rollout picked
     return err
 
 
@@ -1426,21 +1432,23 @@ def mesh_pair(task: str, opt: str, R: int | None, mesh) -> dict:
     import torch
 
     from judo_tpu_torch.controller import Controller
-    from judo_tpu_torch.physics.fused_rollout import fused_rollout
+    from judo_tpu_torch.physics.fused_rollout import fused_rollout, num_constraint_rows
     from judo_tpu_torch.physics.policy_rollout import fused_policy_rollout
 
     s, t = graph_controller(task, opt, R, mesh=mesh), graph_controller(task, opt, R)
     kernel = fused_policy_rollout if s.task.uses_locomotion_policy else fused_rollout
     rng = np.random.default_rng(12)
-    out = {"bitwise": [], "launches": 0, "solves": 0, "R": s.optimizer_cfg.num_rollouts, "T": s.num_timesteps}
+    out = {"bitwise": [], "launches": 0, "solves": 0, "R": s.optimizer_cfg.num_rollouts, "T": s.num_timesteps,
+           "rows": num_constraint_rows(s.pm), "warps": set()}
     for n, state in enumerate(mesh_states(s, rng, MESH_SOLVES)):
         if n == MESH_TUNE_AT:
             for c in (s, t):
                 tune(c, task)
         s.current_state, t.current_state = state.copy(), state.copy()
-        before = kernel.launches
+        before, by_warps = kernel.launches, dict(getattr(kernel, "launches_by_warps", {}))
         s.update_action()
         out["launches"] += kernel.launches - before
+        out["warps"] |= {w for w, k in getattr(kernel, "launches_by_warps", {}).items() if k > by_warps.get(w, 0)}
         out["solves"] += 1
         t.update_action()
         torch.cuda.synchronize()
@@ -1574,6 +1582,7 @@ def mesh_phase(card: str, verdict) -> dict:
     import torch
 
     from judo_tpu_torch.parallel import make_rollout_mesh
+    from judo_tpu_torch.physics.fused_rollout import rollout_warps, sm_count
 
     devices = mesh_devices()
     mesh = make_rollout_mesh(devices=devices)
@@ -1584,21 +1593,25 @@ def mesh_phase(card: str, verdict) -> dict:
         kernel = "fused_policy_rollout" if task_name.startswith("spot") else "fused_rollout"
         launches[kernel] += m["launches"]
         per_solve = len(m["shards"]) * m["iterations"]
-        good = all(m["bitwise"]) and m["launches"] == per_solve * m["solves"]
+        # K1's shards run at the warps per rollout of the whole batch
+        rule = rollout_warps(m["R"], sm_count(devices[0]), m["rows"])
+        warps = {rule} if kernel == "fused_rollout" else set()
+        good = all(m["bitwise"]) and m["launches"] == per_solve * m["solves"] and m["warps"] == warps
         p50, twin50 = np.percentile(m["sharded_ms"], 50), np.percentile(m["twin_ms"], 50)
-        ratios[task_name] = p50 / twin50
+        ratios[task_name, m["R"]] = p50 / twin50
         label = (f"mesh {task_name} {opt_name} (bitwise {m['bitwise']}, launches {m['launches']} in {m['solves']} "
-                 f"solves of {per_solve})")
+                 f"solves of {per_solve}, warps per rollout {sorted(m['warps'])} against {sorted(warps)})")
         print(f"mesh {task_name} {opt_name} R={m['R']} T={m['T']} f32 over {mesh.shape} {devices}: shards "
-              f"{m['shards']}; {m['solves']} solves bitwise equal to the unsharded twin in published times, knots, "
+              f"{m['shards']} at warps per rollout {sorted(m['warps'])} (the whole batch's: {sorted(warps)}); "
+              f"{m['solves']} solves bitwise equal to the unsharded twin in published times, knots, "
               f"rewards, traces and carry: {sum(m['bitwise'])} of {len(m['bitwise'])}; {kernel} launches "
               f"{m['launches']} ({m['launches'] / m['solves']:g} per solve, shards x iterations {per_solve}): "
               f"{verdict(label, good)}", flush=True)
         print(f"  time mesh {task_name}: sharded {pcts(m['sharded_ms'])}; twin {pcts(m['twin_ms'])}; p50 ratio "
-              f"{ratios[task_name]:.4f}; {MESH_TIMED} solves each in turns; {m['bytes']} bytes between devices per "
+              f"{ratios[task_name, m['R']]:.4f}; {MESH_TIMED} solves each in turns; {m['bytes']} bytes between devices per "
               f"solve; the entry's {m['graphs']} graph(s), pools {m['pool_bytes']} bytes on {card}", flush=True)
     if len(set(devices)) == 1:
-        ratio = ratios["leap_cube"]
+        ratio = ratios["leap_cube", B_MAIN]
         print(f"mesh overlap: two leap shards on one card plan in {ratio:.4f}x the twin's p50 (limit "
               f"{MESH_OVERLAP_LIMIT}; one after the other they take about 1.85x): "
               f"{verdict(f'mesh overlap ({ratio:.4f}x)', ratio < MESH_OVERLAP_LIMIT)}", flush=True)
@@ -1809,7 +1822,9 @@ def timing() -> dict:
 
 def occupancy_report() -> list:
     """Scratch layout, dynamic shared memory per block and resident blocks
-    per SM of each kernel at the paths' models, float32 and float64."""
+    per SM of each kernel at the paths' models, float32 and float64; the
+    rollout kernel in blocks of one warp and of four (the rule's pick where
+    the rollouts are few: fused_rollout.rollout_warps)."""
     import torch
 
     from judo_tpu_torch.physics.fused_rollout import kernel_layout
@@ -1818,15 +1833,14 @@ def occupancy_report() -> list:
     for dtype in (torch.float32, torch.float64):
         name = "f32" if dtype == torch.float32 else "f64"
         leap, cyl, fr3 = (scene_model(s, dtype) for s in ("leap", "cylinder_push", "fr3"))
-        rows = [("fused_rollout leap", leap, False, None), ("physics_step leap", leap, True, None),
-                ("fused_rollout cylinder_push", cyl, False, None), ("fused_rollout fr3", fr3, False, None),
-                ("physics_step fr3", fr3, True, None), ("fused_rollout check", scene_model("check", dtype), False,
-                                                        None)]
+        rows = [("physics_step leap", leap, True, None, 1), ("physics_step fr3", fr3, True, None, 1)]
+        for scene, m in (("leap", leap), ("cylinder_push", cyl), ("fr3", fr3), ("check", scene_model("check", dtype))):
+            rows += [(f"fused_rollout {scene} W={w}", m, False, None, w) for w in (1, 4)]
         for scene in ("spot_navigate", *OBJECT_TASKS):
             task = spot_task(scene, dtype)
-            rows.append((f"fused_policy_rollout {scene}", task.planning_model, False, task.policy))
-        for kernel, m, cold, policy in rows:
-            layout, nbytes, blocks = kernel_layout(m, dtype, cold, policy)
+            rows.append((f"fused_policy_rollout {scene}", task.planning_model, False, task.policy, 1))
+        for kernel, m, cold, policy, warps in rows:
+            layout, nbytes, blocks = kernel_layout(m, dtype, cold, policy, warps)
             lines.append(f"{kernel} {name}: layout {layout}, {nbytes} B dynamic shared memory per block, {blocks} "
                          f"blocks per SM")
     return lines
@@ -1889,13 +1903,14 @@ def main() -> int:
             for B in K1_B[scene]:
                 e = errs[("fused_rollout", name, scene, B)] = k1_vs_plain(name, B, scene, T)
                 lim = LIMITS[name]
+                at = f"{scene} B={B} W={e['warps']}"  # the warps per rollout it ran
                 for k in ("states", "sensors"):
-                    check(f"fused_rollout vs plain {name} {scene} B={B} T={T} {k}", e[k], lim)
-                check_distance(f"fused_rollout vs plain {name} {scene} B={B} T={T}", name, e)
+                    check(f"fused_rollout vs plain {name} {at} T={T} {k}", e[k], lim)
+                check_distance(f"fused_rollout vs plain {name} {at} T={T}", name, e)
                 if name == "f64":
-                    check(f"fused_rollout vs plain f64 {scene} B={B} efc0", e["efc0"], lim)
+                    check(f"fused_rollout vs plain f64 {at} efc0", e["efc0"], lim)
                 else:
-                    check(f"fused_rollout vs plain f32 {scene} B={B} efc0 relative (|efc0| max "
+                    check(f"fused_rollout vs plain f32 {at} efc0 relative (|efc0| max "
                           f"{e['efc0_scale']:.3e})", e["efc0_rel"], LIMITS["f32_efc0_rel"])
     for name in ("f64", "f32"):
         for B in (R_SPOT, 80):

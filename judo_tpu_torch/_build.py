@@ -120,7 +120,7 @@ def load(kind: str) -> ctypes.CDLL:
     lib.jt_model_sizes.restype = None
     for name in ("jt_fused_rollout_f32", "jt_fused_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(JtSizes)] + [p] * 12
+        fn.argtypes = [ctypes.POINTER(JtSizes), ctypes.c_int] + [p] * 12
         fn.restype = ctypes.c_int
     lib.jt_policy_scratch_per_lane.argtypes = [ctypes.POINTER(JtSizes), ctypes.c_int]
     lib.jt_policy_scratch_per_lane.restype = ctypes.c_longlong
@@ -131,7 +131,7 @@ def load(kind: str) -> ctypes.CDLL:
     if kind == "cuda":
         i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         lib.jt_smem_optin.argtypes = [pi]
-        lib.jt_rollout_blocks_per_sm.argtypes = [i, i, i, i, pi]
+        lib.jt_rollout_blocks_per_sm.argtypes = [i, i, i, i, i, pi]
         lib.jt_policy_blocks_per_sm.argtypes = [i, i, i, pi]
         for fn in (lib.jt_smem_optin, lib.jt_rollout_blocks_per_sm, lib.jt_policy_blocks_per_sm):
             fn.restype = ctypes.c_int

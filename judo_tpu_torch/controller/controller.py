@@ -60,7 +60,7 @@ from judo_tpu_torch.optimizers import Optimizer, OptimizerConfig, get_registered
 from judo_tpu_torch.optimizers.base import top_k_indices
 from judo_tpu_torch.parallel.mesh import RolloutMesh, broadcast_from_rank0, process_group, resolve_mesh, same_device
 from judo_tpu_torch.parallel.shards import run_rollouts
-from judo_tpu_torch.physics.fused_rollout import pack_model, rollout_lanes
+from judo_tpu_torch.physics.fused_rollout import pack_model, rollout_lanes, rollout_warps, sm_count
 from judo_tpu_torch.physics.model import lane_supported, num_constraint_rows
 from judo_tpu_torch.physics.policy_rollout import policy_rollout_lanes
 from judo_tpu_torch.tasks import Task, get_registered_tasks
@@ -198,9 +198,15 @@ def solve(
 
 
 def _lanes(ctrl: "Controller", qpos0, qvel0, sim_controls, efc_warm) -> tuple:
-    """K1 on one batch: -> (states, sensors, step-0 forces)."""
+    """K1 on one batch: -> (states, sensors, step-0 forces). On the card it
+    runs at the warps per rollout of the whole solve's batch on the lead
+    device (``rollout_warps``), also on a shard, so that a sharded plan is
+    bitwise the unsharded one."""
+    sms = sm_count(ctrl.device)
+    rows = num_constraint_rows(ctrl.pm)
+    warps = None if sms is None else rollout_warps(ctrl.optimizer_cfg.num_rollouts, sms, rows)
     out = rollout_lanes(ctrl.pm, qpos0, qvel0, sim_controls, ctrl.task.physics_substeps,
-                        ctrl.controller_cfg.solver_iterations, efc_warm)
+                        ctrl.controller_cfg.solver_iterations, efc_warm, warps)
     return out.states, out.sensordata, out.efc0
 
 

@@ -73,7 +73,7 @@ import torch
 
 from judo_tpu_torch.parallel.mesh import same_device
 from judo_tpu_torch.parallel.shards import batch_first, join_buffers, join_shards, launch_shards, shard_blocks
-from judo_tpu_torch.physics.fused_rollout import tallied_launches
+from judo_tpu_torch.physics.fused_rollout import add_launches, tallied_launches
 from judo_tpu_torch.utils.profiling import span
 
 # The carried solver state's fields that are tensors (or trees of them); the
@@ -160,7 +160,7 @@ class SolveGraph:
         self.graphs: list[torch.cuda.CUDAGraph] = []  # one, or the segments and shard graphs of a cut capture
         self.steps: list[Callable] = []  # what one replay runs, in order: graph replays and the copies between
         self.outputs = None  # the graph's own outputs, overwritten by each replay
-        self.launches: dict = {}  # kernel wrapper -> its launches in one replay
+        self.launches: dict = {}  # (kernel wrapper, warps per rollout) -> its launches in one replay
         self.shards: list | None = None  # (device, batch) of each shard, as the capture split the rollouts
         self._devices: tuple = (self.device,)  # the devices the graphs run on
         self._held: tuple = ()  # the task, optimizer, trace indices and buffers whose tensors the graphs read
@@ -267,8 +267,8 @@ class SolveGraph:
                 with span("dispatch.replay", spans):
                     for step in self.steps:
                         step()
-                for wrapper, n in self.launches.items():
-                    wrapper.launches += n
+                for (wrapper, warps), n in self.launches.items():
+                    add_launches(wrapper, n, warps)
                 ctrl.last_shards = self.shards
                 outputs = self.outputs
             else:

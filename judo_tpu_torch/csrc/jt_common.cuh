@@ -1,19 +1,20 @@
-// Shared definitions of the step body, written for one warp per rollout.
+// Shared definitions of the step body, written for a group of W warps per
+// rollout (one warp, W = 1, unless the rollouts leave the card's SMs idle).
 //
 // Everything here is __host__ __device__: nvcc builds it into the CUDA kernels
 // (fused_rollout.cu, fused_policy_rollout.cu) and g++ builds the same code into
 // a CPU library (*_host.cpp) that the CPU tests hold against the plain PyTorch
 // versions. The model arrives as two flat arrays (ints and scalars) in fixed
-// record layouts that judo_tpu_torch/physics/fused_rollout.py packs. One warp
+// record layouts that judo_tpu_torch/physics/fused_rollout.py packs. One block
 // computes one rollout, and that rollout's work arrays (make_scratch) are one
 // contiguous buffer: dynamic shared memory on the card, a heap buffer in the
-// host twin. The 32 lanes share the work through Warp (below); on the host the
-// same primitives play the 32 lanes in the card's order, so the host twin runs
-// the partition and summation order that the card runs. No per-thread array is
-// sized by the model (only fixed small locals): the wrapper sizes the shared
-// memory from jt_scratch_per_lane, moves J to global memory where the whole
-// scratch exceeds the card's per-block limit (make_scratch), and raises where
-// even the rest exceeds it.
+// host twin. The block's W x 32 threads share the work through Group<W>
+// (below); on the host the same primitives play the threads in the card's
+// order, so the host twin runs the partition and summation order that the
+// card runs. No per-thread array is sized by the model (only fixed small
+// locals): the wrapper sizes the shared memory from jt_scratch_per_lane, moves
+// J to global memory where the whole scratch exceeds the card's per-block
+// limit (make_scratch), and raises where even the rest exceeds it.
 #pragma once
 
 #include <math.h>
@@ -227,37 +228,65 @@ struct Lane {
   HD Lane at(int64_t off) const { return Lane{p + off * s, s}; }
 };
 
-// The 32 lanes of the warp that computes one rollout. Every lane calls each
-// primitive together with the others (never inside single() or inside the body
-// of another primitive), and code between primitives is the same on every
-// lane and writes no scratch.
-//   for_each(n, f): f(i) for i < n, lane l taking i = l, l + 32, ...; ends
-//     with __syncwarp, so what f wrote is visible to every lane afterwards.
-//   sum(n, f), max(n, f, init), min(n, f, init): each lane folds its indices
-//     in that order, then an xor-shuffle tree combines the 32 partials; every
-//     lane gets the same value.
-//   single(f): f() on lane 0 alone, then __syncwarp.
-// Compiled by g++, one thread plays the 32 lanes in the same partition and
-// the same tree, so the host twin's sums round as the card's do.
-struct Warp {
+#ifdef __CUDACC__
+// The W partials of a fold over a block of W warps (Group<W>).
+template <typename T, int W>
+__device__ inline T* fold_partials() {
+  __shared__ T partials[W];
+  return partials;
+}
+#endif
+
+// The W warps (W x 32 threads) of the block that computes one rollout; W = 1
+// is one warp, as K2 and K3 always run and K1 where its rollouts fill the card.
+// Every thread calls each primitive together with the others (never inside
+// single() or inside the body of another primitive), and code between
+// primitives is the same on every thread and writes no scratch.
+//   for_each(n, f): f(i) for i < n, thread l taking i = l, l + 32 W, ...;
+//     ends with a barrier (__syncwarp at W = 1, else __syncthreads), so what
+//     f wrote is visible to every thread afterwards.
+//   sum(n, f), max(n, f, init), min(n, f, init): each thread folds its
+//     indices in that order, then an xor-shuffle tree combines the 32
+//     partials of each warp; at W > 1 each warp's partial goes to shared
+//     memory and every thread combines the W of them in warp order, between
+//     two barriers (the second keeps the next fold from overwriting them).
+//     Every thread gets the same value.
+//   single(f): f() on thread 0 alone, then the barrier.
+// Compiled by g++, one thread plays the W x 32 threads in the same partition,
+// the same trees and the same order, so the host twin's sums round as the
+// card's do.
+template <int W>
+struct Group {
+  static constexpr int kWarps = W;
   static constexpr int kLanes = 32;
+  static constexpr int kThreads = W * kLanes;
 
   template <class F>
   static HD void for_each(int n, F f) {
 #ifdef __CUDA_ARCH__
-    for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) f(i);
-    __syncwarp();
+    if constexpr (W == 1) {
+      for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) f(i);
+      __syncwarp();
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) f(i);
+      __syncthreads();
+    }
 #else
-    for (int l = 0; l < kLanes; ++l)
-      for (int i = l; i < n; i += kLanes) f(i);
+    for (int l = 0; l < kThreads; ++l)
+      for (int i = l; i < n; i += kThreads) f(i);
 #endif
   }
 
   template <class F>
   static HD void single(F f) {
 #ifdef __CUDA_ARCH__
-    if ((threadIdx.x & (kLanes - 1)) == 0) f();
-    __syncwarp();
+    if constexpr (W == 1) {
+      if ((threadIdx.x & (kLanes - 1)) == 0) f();
+      __syncwarp();
+    } else {
+      if (threadIdx.x == 0) f();
+      __syncthreads();
+    }
 #else
     f();
 #endif
@@ -283,23 +312,40 @@ struct Warp {
   static HD T fold(int n, F f, T init, Op op) {
 #ifdef __CUDA_ARCH__
     T p = init;
-    for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) p = op(p, f(i));
-    for (int o = kLanes / 2; o > 0; o >>= 1) p = op(p, __shfl_xor_sync(0xffffffffu, p, o));
-    return p;
+    if constexpr (W == 1) {
+      for (int i = threadIdx.x & (kLanes - 1); i < n; i += kLanes) p = op(p, f(i));
+      for (int o = kLanes / 2; o > 0; o >>= 1) p = op(p, __shfl_xor_sync(0xffffffffu, p, o));
+      return p;
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) p = op(p, f(i));
+      for (int o = kLanes / 2; o > 0; o >>= 1) p = op(p, __shfl_xor_sync(0xffffffffu, p, o));
+      T* const part = fold_partials<T, W>();
+      if ((threadIdx.x & (kLanes - 1)) == 0) part[threadIdx.x / kLanes] = p;
+      __syncthreads();
+      T r = part[0];
+      for (int k = 1; k < W; ++k) r = op(r, part[k]);
+      __syncthreads();
+      return r;
+    }
 #else
-    T p[kLanes], q[kLanes];
-    for (int l = 0; l < kLanes; ++l) {
+    T p[kThreads], q[kThreads];
+    for (int l = 0; l < kThreads; ++l) {
       p[l] = init;
-      for (int i = l; i < n; i += kLanes) p[l] = op(p[l], f(i));
+      for (int i = l; i < n; i += kThreads) p[l] = op(p[l], f(i));
     }
     for (int o = kLanes / 2; o > 0; o >>= 1) {
-      for (int l = 0; l < kLanes; ++l) q[l] = op(p[l], p[l ^ o]);
-      for (int l = 0; l < kLanes; ++l) p[l] = q[l];
+      for (int l = 0; l < kThreads; ++l) q[l] = op(p[l], p[l ^ o]);
+      for (int l = 0; l < kThreads; ++l) p[l] = q[l];
     }
-    return p[0];
+    T r = p[0];
+    for (int k = 1; k < W; ++k) r = op(r, p[k * kLanes]);
+    return r;
 #endif
   }
 };
+
+// One warp: the group of K2, K3, and K1 where its rollouts fill the card.
+using Warp = Group<1>;
 
 #ifdef __CUDACC__
 // The block's dynamic shared memory, which holds the rollout's scratch.

@@ -381,7 +381,7 @@ HD void smooth_force(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, Lane<const T> 
 // (Gauss-Jordan without pivoting, then symmetrised), as lane_engine.spd_inverse_l.
 // Lanes over the rows of an island: at pivot j each lane eliminates column j
 // from its own row, reading only row j, which no lane writes in that step.
-template <typename T>
+template <class G, typename T>
 HD void island_inverse(const Ctx<T>& c, int64_t src, int64_t dst) {
   T* const w = c.w.p;
   const int nv = c.s.nv;
@@ -390,13 +390,13 @@ HD void island_inverse(const Ctx<T>& c, int64_t src, int64_t dst) {
     T* const a = w + c.S.work;
     T* const x = w + dst + st * nv + st;
     const T* const m = w + src + st * nv + st;
-    Warp::for_each(n * n, [&](int k) {
+    G::for_each(n * n, [&](int k) {
       const int r = k / n, q = k % n;
       a[k] = m[r * nv + q];
       x[r * nv + q] = r == q ? T(1) : T(0);
     });
     for (int j = 0; j < n; ++j) {
-      Warp::for_each(n, [&](int r) {
+      G::for_each(n, [&](int r) {
         if (r == j) return;
         const T f = a[r * n + j] / a[j * n + j];
         for (int q = 0; q < n; ++q) {
@@ -405,11 +405,11 @@ HD void island_inverse(const Ctx<T>& c, int64_t src, int64_t dst) {
         }
       });
     }
-    Warp::for_each(n, [&](int r) {
+    G::for_each(n, [&](int r) {
       const T d = a[r * n + r];
       for (int q = 0; q < n; ++q) x[r * nv + q] = x[r * nv + q] / d;
     });
-    Warp::for_each(n * n, [&](int k) {
+    G::for_each(n * n, [&](int k) {
       const int r = k / n, q = k % n;
       if (q < r) return;
       const T s = T(0.5) * (x[r * nv + q] + x[q * nv + r]);
@@ -421,11 +421,11 @@ HD void island_inverse(const Ctx<T>& c, int64_t src, int64_t dst) {
 
 // out = blockdiag(A) v over the islands (|A| when `absval`); lanes over the
 // rows of all islands at once (the islands tile the dofs).
-template <typename T>
+template <class G, typename T>
 HD void island_mv(const Ctx<T>& c, int64_t A, int64_t v, int64_t out, bool absval) {
   T* const w = c.w.p;
   const int nv = c.s.nv;
-  Warp::for_each(nv, [&](int i) {
+  G::for_each(nv, [&](int i) {
     int st = 0, n = nv;
     for (int is = 0; is < c.s.nisl; ++is) {
       const int s0 = c.mi[c.L.ii + II * is], n0 = c.mi[c.L.ii + II * is + 1];

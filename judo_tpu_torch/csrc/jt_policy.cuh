@@ -154,7 +154,7 @@ HD void policy_rollout(const JtSizes& s, const int* mi, const T* mf, const int* 
   const Policy<T> p = policy_view(pi, pf);
   const PolicyScratch P = make_policy_scratch(s, p.maxw);
   const int64_t B = s.B;
-  rollout_init(c, qpos0, qvel0, (const T*)nullptr, b);
+  rollout_init<Warp>(c, qpos0, qvel0, (const T*)nullptr, b);
   Warp::for_each(kPout, [&](int k) { work[P.pout + k] = pout0[k * B + b]; });
   const Lane<const T> ctrl{work + P.ctrl, 1};
   for (int t = 0; t < s.T; ++t) {
@@ -162,8 +162,8 @@ HD void policy_rollout(const JtSizes& s, const int* mi, const T* mf, const int* 
     const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
     policy_tick(c, p, P, cmd_t);
     Warp::for_each(s.ns_, [&](int k) { sens_t[k] = T(0); });
-    for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl, sens_t);
-    store_state(c, oq, ov, t, b);
+    for (int sub = 0; sub < s.substeps; ++sub) step<Warp>(c, ctrl, sens_t);
+    store_state<Warp>(c, oq, ov, t, b);
     Warp::for_each(kPout, [&](int k) { op[((int64_t)t * kPout + k) * B + b] = work[P.pout + k]; });
   }
 }

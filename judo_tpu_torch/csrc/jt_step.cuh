@@ -1,13 +1,18 @@
 // One physics step and the whole T-step rollout of one rollout, computed by
-// one warp: sensors (distance sensors over the warp), narrowphase, constraint
-// assembly (joint equalities, joint limits, contacts), the accelerated
-// projected-gradient dual solve with the carried Collatz-Wielandt probe, and
-// implicit-damping integration. Twin of judo_tpu_torch/physics/lane_step.py:
-// step_l and fused_rollout.py:rollout_lanes_reference. Every stage that walks
-// J or an nefc-long vector spreads its rows (or dofs, contacts, pairs) over
-// the lanes through Warp; kinematics, dynamics, sensors and the position
-// update run on lane 0.
+// the block's group G (Group<W>: W warps): sensors (distance sensors over the
+// group), narrowphase, constraint assembly (joint equalities, joint limits,
+// contacts), the accelerated projected-gradient dual solve with the carried
+// Collatz-Wielandt probe, and implicit-damping integration. Twin of
+// judo_tpu_torch/physics/lane_step.py:step_l and
+// fused_rollout.py:rollout_lanes_reference. Every stage that walks J or an
+// nefc-long vector spreads its rows (or dofs, contacts, pairs) over the
+// group's threads ("lanes" below) through G; kinematics, dynamics, sensors
+// and the position update run on lane 0.
 #pragma once
+
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 #include "jt_collision.cuh"
 #include "jt_dynamics.cuh"
@@ -93,12 +98,12 @@ HD void geom_pair_contacts(const Ctx<T>& c, int kind, int g1, int g2, const T* s
 }
 
 // Distance sensors between two bodies: the least of the cutoff and every slot
-// distance of the sensor's geom pairs. Lanes over the pairs, then a warp min.
-template <typename T>
+// distance of the sensor's geom pairs. Lanes over the pairs, then a group min.
+template <class G, typename T>
 HD void distance_sensors(const Ctx<T>& c, Lane<T> out) {
   for (int i = 0; i < c.s.ndist; ++i) {
     const int* xi = c.mi + c.L.ix + XI * i;
-    const T v = Warp::min(xi[2], [&](int k) {
+    const T v = G::min(xi[2], [&](int k) {
       const int* qi = c.mi + c.L.iq + QI * (xi[1] + k);
       const T* qf = c.mf + c.L.fq + QF * (xi[1] + k);
       T d[4], pos[12], nrm[12];
@@ -107,15 +112,15 @@ HD void distance_sensors(const Ctx<T>& c, Lane<T> out) {
       for (int s = 1; s < qi[3]; ++s) least = tmin(least, d[s]);
       return least;
     }, c.mf[c.L.fx + XF * i]);
-    Warp::single([&] { out[xi[0]] = v; });
+    G::single([&] { out[xi[0]] = v; });
   }
 }
 
 // Lanes over pairs; each pair writes its own contact slots.
-template <typename T>
+template <class G, typename T>
 HD void narrowphase(const Ctx<T>& c) {
   const Lane<T> w = c.w;
-  Warp::for_each(c.s.npair, [&](int p) {
+  G::for_each(c.s.npair, [&](int p) {
     const int* pi = c.mi + c.L.ip + PI * p;
     const T* pf = c.mf + c.L.fp + PF * p;
     T d[4], pos[12], nrm[12];
@@ -171,18 +176,18 @@ HD void limit_row(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, const int* li, co
 // over the rows before the contacts (joint equalities, joint limits), then
 // over contact slots (each writes its own 3 or 4 rows, only on the dofs that
 // move one of its bodies), then over rows for the masking and b.
-template <typename T>
+template <class G, typename T>
 HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
   const Lane<T> w = c.w;
   const int nv = c.s.nv, nnc = c.s.nnc, nc = c.s.ncon, ld = c.S.jld;
   const T impratio = c.mf[4];
-  Warp::for_each(nnc, [&](int r) {
+  G::for_each(nnc, [&](int r) {
     const int* li = c.mi + c.L.il + LI * r;
     const T* lf = c.mf + c.L.fl + LF * r;
     if (li[0] == ROW_EQUALITY) equality_row(c, qpos, qvel, li, lf, r);
     else limit_row(c, qpos, qvel, li, lf, r);
   });
-  Warp::for_each(nc, [&](int ci) {
+  G::for_each(nc, [&](int ci) {
     const int* sI = c.mi + c.L.ic + CI * ci;
     const T* sF = c.mf + c.L.fc + CF * ci;
     const int* mask1 = c.mi + c.L.imask + nv * sI[0];
@@ -251,7 +256,7 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
       w[c.S.diag + r] = sF[9];
     }
   });
-  Warp::for_each(c.s.nefc, [&](int r) {
+  G::for_each(c.s.nefc, [&](int r) {
     const T a = w[c.S.act + r];
     T bv = T(0);
     for (int v = 0; v < nv; ++v) {
@@ -267,11 +272,11 @@ HD void assemble(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel) {
 // Projection onto the orthant (equality and limit rows, pyramidal facets) x
 // second-order cones (elliptic contacts): lanes over orthant rows, then over
 // contacts.
-template <typename T>
+template <class G, typename T>
 HD void project(const Ctx<T>& c, int64_t z) {
   T* const w = c.w.p;
   const int nor = c.s.pyramidal ? c.s.nefc : c.s.nnc, nc = c.s.pyramidal ? 0 : c.s.ncon;
-  Warp::for_each(nor + nc, [&](int i) {
+  G::for_each(nor + nc, [&](int i) {
     if (i < nor) {
       w[z + i] = tmax(w[z + i], T(0));
       return;
@@ -291,33 +296,56 @@ HD void project(const Ctx<T>& c, int64_t z) {
   });
 }
 
-// tv1 = J^T x (|J|^T x when absval): lanes over dofs, each summing its column
-// over all rows in a register; neighbouring lanes read neighbouring words.
-template <typename T>
+// tv1 = J^T x (|J|^T x when absval). One warp: lanes over dofs, each summing
+// its column over all rows in a register; neighbouring lanes read neighbouring
+// words. W warps: thread v + nv s (s < S, S slices of the rows, at most nv)
+// sums column v over rows s, s + S, ..., so a warp's threads read
+// consecutive words, into the island inverses' work matrix, which is free
+// here; then lanes over dofs add the S slices in slice order.
+template <class G, typename T>
 HD void jt_vec(const Ctx<T>& c, int64_t x, bool absval) {
   T* const w = c.w.p;
   const T* const J = c.J;
-  const int ne = c.s.nefc, ld = c.S.jld;
-  Warp::for_each(c.s.nv, [&](int v) {
-    T acc = T(0);
-    for (int r = 0; r < ne; ++r) {
-      const T j = J[r * ld + v];
-      acc = acc + (absval ? tabs(j) : j) * w[x + r];
-    }
-    w[c.S.tv1 + v] = acc;
-  });
+  const int ne = c.s.nefc, nv = c.s.nv, ld = c.S.jld;
+  if constexpr (G::kWarps == 1) {
+    G::for_each(nv, [&](int v) {
+      T acc = T(0);
+      for (int r = 0; r < ne; ++r) {
+        const T j = J[r * ld + v];
+        acc = acc + (absval ? tabs(j) : j) * w[x + r];
+      }
+      w[c.S.tv1 + v] = acc;
+    });
+  } else {
+    const int S = tmax(1, tmin(G::kThreads / nv, nv));
+    T* const part = w + c.S.work;
+    G::for_each(nv * S, [&](int k) {
+      const int v = k % nv;
+      T acc = T(0);
+      for (int r = k / nv; r < ne; r += S) {
+        const T j = J[r * ld + v];
+        acc = acc + (absval ? tabs(j) : j) * w[x + r];
+      }
+      part[k] = acc;
+    });
+    G::for_each(nv, [&](int v) {
+      T acc = part[v];
+      for (int s = 1; s < S; ++s) acc = acc + part[v + nv * s];
+      w[c.S.tv1 + v] = acc;
+    });
+  }
 }
 
 // out = J M^-1 J^T x + reg x  (|J| |M^-1| |J|^T x + reg x when absval); the
 // last product runs lanes over rows.
-template <typename T>
+template <class G, typename T>
 HD void apply_op(const Ctx<T>& c, int64_t x, int64_t out, bool absval) {
   T* const w = c.w.p;
   const T* const J = c.J;
   const int nv = c.s.nv, ld = c.S.jld;
-  jt_vec(c, x, absval);
-  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, absval);
-  Warp::for_each(c.s.nefc, [&](int r) {
+  jt_vec<G>(c, x, absval);
+  island_mv<G>(c, c.S.Minv, c.S.tv1, c.S.tv2, absval);
+  G::for_each(c.s.nefc, [&](int r) {
     T acc = T(0);
     for (int v = 0; v < nv; ++v) {
       const T j = J[r * ld + v];
@@ -327,74 +355,74 @@ HD void apply_op(const Ctx<T>& c, int64_t x, int64_t out, bool absval) {
   });
 }
 
-// 1 / |x| over n entries (a warp sum, the same on every lane).
-template <typename T>
+// 1 / |x| over n entries (a group sum, the same on every lane).
+template <class G, typename T>
 HD T norm_inv(const Ctx<T>& c, int64_t x, int n) {
   const T* const w = c.w.p;
-  return trsqrt(tmax(Warp::sum(n, [&](int r) { return w[x + r] * w[x + r]; }), T(kMinval)));
+  return trsqrt(tmax(G::sum(n, [&](int r) { return w[x + r] * w[x + r]; }), T(kMinval)));
 }
 
 // APGD on the Jacobi-scaled dual; leaves the scaled solution g in S.f
 // (the force is g * inv_s), writes the carried warm start (fw) and probe (cwv).
-// Lanes over rows; the norms, the CW maximum and the restart sum are warp
+// Lanes over rows; the norms, the CW maximum and the restart sum are group
 // reductions, so every lane holds the same step, momentum and restart flag.
-template <typename T>
+template <class G, typename T>
 HD void dual_solve(const Ctx<T>& c) {
   T* const w = c.w.p;
   const int nv = c.s.nv, ne = c.s.nefc, nnc = c.s.nnc, nc = c.s.ncon, ld = c.S.jld;
-  Warp::for_each(ne, [&](int r) {
+  G::for_each(ne, [&](int r) {
     const T is = trsqrt(tmax(w[c.S.diag + r] + w[c.S.reg + r], T(kMinval)));
     w[c.S.invs + r] = is;
     for (int v = 0; v < nv; ++v) c.J[r * ld + v] = c.J[r * ld + v] * is;
     w[c.S.reg + r] = w[c.S.reg + r] * is * is;
     w[c.S.bvec + r] = w[c.S.bvec + r] * is;
   });
-  Warp::for_each(c.s.pyramidal ? 0 : nc, [&](int ci) {
+  G::for_each(c.s.pyramidal ? 0 : nc, [&](int ci) {
     const T mu = c.mf[c.L.fc + CF * ci];
     w[c.S.muc + ci] = mu * w[c.S.invs + nnc + ci] / tmax(w[c.S.invs + nnc + nc + ci], T(kMinval));
   });
   // Collatz-Wielandt bound from one |A| apply on the carried probe, or on a
   // cold one after three normalised warm-up applies from ones
   if (c.s.cold) {
-    Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = T(1); });
+    G::for_each(ne, [&](int r) { w[c.S.vv + r] = T(1); });
     for (int k = 0; k < 3; ++k) {
-      apply_op(c, c.S.vv, c.S.bv, true);
-      const T n = norm_inv(c, c.S.bv, ne);
-      Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = w[c.S.bv + r] * n; });
+      apply_op<G>(c, c.S.vv, c.S.bv, true);
+      const T n = norm_inv<G>(c, c.S.bv, ne);
+      G::for_each(ne, [&](int r) { w[c.S.vv + r] = w[c.S.bv + r] * n; });
     }
   } else {
-    const T nin = norm_inv(c, c.S.cwv, ne);
-    Warp::for_each(ne, [&](int r) { w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7)); });
+    const T nin = norm_inv<G>(c, c.S.cwv, ne);
+    G::for_each(ne, [&](int r) { w[c.S.vv + r] = tmax(w[c.S.cwv + r] * nin, T(1e-7)); });
   }
-  apply_op(c, c.S.vv, c.S.bv, true);
-  const T L = Warp::max(ne, [&](int r) { return w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)); }, T(-kBig));
-  const T nout = norm_inv(c, c.S.bv, ne);
-  Warp::for_each(ne, [&](int r) { w[c.S.cwv + r] = w[c.S.bv + r] * nout; });
+  apply_op<G>(c, c.S.vv, c.S.bv, true);
+  const T L = G::max(ne, [&](int r) { return w[c.S.bv + r] / tmax(w[c.S.vv + r], T(1e-12)); }, T(-kBig));
+  const T nout = norm_inv<G>(c, c.S.bv, ne);
+  G::for_each(ne, [&](int r) { w[c.S.cwv + r] = w[c.S.bv + r] * nout; });
   const T step = T(1) / tmax(L, T(kMinval));
 
-  Warp::for_each(ne, [&](int r) { w[c.S.f + r] = w[c.S.fw + r] / tmax(w[c.S.invs + r], T(kMinval)); });
-  project(c, c.S.f);
-  Warp::for_each(ne, [&](int r) { w[c.S.y + r] = w[c.S.f + r]; });
+  G::for_each(ne, [&](int r) { w[c.S.f + r] = w[c.S.fw + r] / tmax(w[c.S.invs + r], T(kMinval)); });
+  project<G>(c, c.S.f);
+  G::for_each(ne, [&](int r) { w[c.S.y + r] = w[c.S.f + r]; });
   T tk = T(1);
   for (int it = 0; it < c.s.iterations; ++it) {
-    apply_op(c, c.S.y, c.S.grad, false);
-    Warp::for_each(ne, [&](int r) {
+    apply_op<G>(c, c.S.y, c.S.grad, false);
+    G::for_each(ne, [&](int r) {
       w[c.S.grad + r] = w[c.S.grad + r] + w[c.S.bvec + r];
       w[c.S.fnew + r] = w[c.S.y + r] - step * w[c.S.grad + r];
     });
-    project(c, c.S.fnew);
+    project<G>(c, c.S.fnew);
     const T t_new = T(0.5) * (T(1) + tsqrt(T(1) + T(4) * tk * tk));
     const T mom = (tk - T(1)) / t_new;
-    const T rs = Warp::sum(ne, [&](int r) { return w[c.S.grad + r] * (w[c.S.fnew + r] - w[c.S.f + r]); });
+    const T rs = G::sum(ne, [&](int r) { return w[c.S.grad + r] * (w[c.S.fnew + r] - w[c.S.f + r]); });
     const bool restart = rs > T(0);
-    Warp::for_each(ne, [&](int r) {
+    G::for_each(ne, [&](int r) {
       const T fn = w[c.S.fnew + r];
       w[c.S.y + r] = restart ? fn : fn + mom * (fn - w[c.S.f + r]);
       w[c.S.f + r] = fn;
     });
     tk = restart ? T(1) : t_new;
   }
-  Warp::for_each(ne, [&](int r) { w[c.S.fw + r] = w[c.S.f + r] * w[c.S.invs + r]; });
+  G::for_each(ne, [&](int r) { w[c.S.fw + r] = w[c.S.f + r] * w[c.S.invs + r]; });
 }
 
 template <typename T>
@@ -434,50 +462,50 @@ HD void integrate_pos(const Ctx<T>& c, Lane<T> qpos, Lane<T> qvel, T h) {
 }
 
 // One physics step in place on this rollout's (qpos, qvel, fw, cwv); every
-// lane of the warp calls it. Forced inline: left to the compiler it became a
+// lane of the group calls it. Forced inline: left to the compiler it became a
 // call once the pair dispatch was inlined into it, and as a call it takes its
 // context by reference from the stack, so every read of a size or offset in
 // the hot loops becomes a local-memory load (K1 and K2 ran far slower; see
 // chip_profile.py inline).
-template <typename T>
+template <class G, typename T>
 HD_FORCEINLINE void step(const Ctx<T>& c, Lane<const T> ctrl, Lane<T> sens_out) {
   T* const w = c.w.p;
   const Lane<T> qpos = c.w.at(c.S.qpos), qvel = c.w.at(c.S.qvel);
   const int nv = c.s.nv;
   const T h = c.mf[0];
-  Warp::single([&] {
+  G::single([&] {
     kinematics(c, qpos);
     com_quantities(c);
     crb_mass_matrix(c);
     velocity_and_bias(c, qvel, c.mf + 1);
     smooth_force(c, qpos, qvel, ctrl);
   });
-  island_inverse(c, c.S.M, c.S.Minv);
-  island_mv(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
-  Warp::single([&] { sensors(c, qpos, qvel, sens_out); });
-  distance_sensors(c, sens_out);
+  island_inverse<G>(c, c.S.M, c.S.Minv);
+  island_mv<G>(c, c.S.Minv, c.S.qfrc, c.S.qacc_s, false);
+  G::single([&] { sensors(c, qpos, qvel, sens_out); });
+  distance_sensors<G>(c, sens_out);
   if (c.s.nefc > 0) {
-    narrowphase(c);
-    assemble(c, qpos, qvel);
-    dual_solve(c);
-    jt_vec(c, c.S.f, false);
-    island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
-    Warp::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v] + w[c.S.tv2 + v]; });
+    narrowphase<G>(c);
+    assemble<G>(c, qpos, qvel);
+    dual_solve<G>(c);
+    jt_vec<G>(c, c.S.f, false);
+    island_mv<G>(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+    G::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v] + w[c.S.tv2 + v]; });
   } else {
-    Warp::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v]; });
+    G::for_each(nv, [&](int v) { w[c.S.qacc + v] = w[c.S.qacc_s + v]; });
   }
   // implicit-in-velocity damping: qvel += (M + h D)^-1 (h M qacc); lane i
   // reads row i of M, then adds to its own diagonal entry
-  Warp::for_each(nv, [&](int i) {
+  G::for_each(nv, [&](int i) {
     T acc = T(0);
     for (int k = 0; k < nv; ++k) acc = acc + w[c.S.M + i * nv + k] * w[c.S.qacc + k];
     w[c.S.tv1 + i] = h * acc;
     w[c.S.M + i * nv + i] = w[c.S.M + i * nv + i] + h * c.dof_f(i)[2];
   });
-  island_inverse(c, c.S.M, c.S.Minv);
-  island_mv(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
-  Warp::for_each(nv, [&](int v) { qvel[v] = qvel[v] + w[c.S.tv2 + v]; });
-  Warp::single([&] { integrate_pos(c, qpos, qvel, h); });
+  island_inverse<G>(c, c.S.M, c.S.Minv);
+  island_mv<G>(c, c.S.Minv, c.S.tv1, c.S.tv2, false);
+  G::for_each(nv, [&](int v) { qvel[v] = qvel[v] + w[c.S.tv2 + v]; });
+  G::single([&] { integrate_pos(c, qpos, qvel, h); });
 }
 
 // The context of rollout b: model, sizes, its scratch (`work`, stride 1) and
@@ -502,51 +530,70 @@ HD Ctx<T> rollout_ctx(const JtSizes& s, const int* mi, const T* mf, T* work, T* 
 // Load rollout b's start state, warm-start forces (zeros when f0 is null)
 // and a probe of ones, and zero J: a contact row's entries on the dofs that
 // move neither of its bodies stay zero, since the assembly never writes them.
-template <typename T>
+template <class G, typename T>
 HD void rollout_init(const Ctx<T>& c, const T* qpos0, const T* qvel0, const T* f0, int b) {
   T* const w = c.w.p;
   const int64_t B = c.s.B;
-  Warp::for_each((int)c.S.jsize, [&](int k) { c.J[k] = T(0); });
-  Warp::for_each(c.s.nq, [&](int k) { w[c.S.qpos + k] = qpos0[k * B + b]; });
-  Warp::for_each(c.s.nv, [&](int k) { w[c.S.qvel + k] = qvel0[k * B + b]; });
-  Warp::for_each(c.s.nefc, [&](int r) {
+  G::for_each((int)c.S.jsize, [&](int k) { c.J[k] = T(0); });
+  G::for_each(c.s.nq, [&](int k) { w[c.S.qpos + k] = qpos0[k * B + b]; });
+  G::for_each(c.s.nv, [&](int k) { w[c.S.qvel + k] = qvel0[k * B + b]; });
+  G::for_each(c.s.nefc, [&](int r) {
     w[c.S.fw + r] = f0 ? f0[r * B + b] : T(0);
     w[c.S.cwv + r] = T(1);
   });
 }
 
 // Write rollout b's qpos and qvel as step t of the (T, n, B) outputs.
-template <typename T>
+template <class G, typename T>
 HD void store_state(const Ctx<T>& c, T* oq, T* ov, int t, int b) {
   const T* const w = c.w.p;
   const int64_t B = c.s.B;
   const int nq = c.s.nq, nv = c.s.nv;
-  Warp::for_each(nq + nv, [&](int k) {
+  G::for_each(nq + nv, [&](int k) {
     if (k < nq) oq[((int64_t)t * nq + k) * B + b] = w[c.S.qpos + k];
     else ov[((int64_t)t * nv + k - nq) * B + b] = w[c.S.qvel + k - nq];
   });
 }
 
-// The whole T-step rollout of rollout b, run by the 32 lanes of one warp on
-// the scratch `work` and, in the layout with J in global memory (JG), b's J in
+// The whole T-step rollout of rollout b, run by the group G (W warps) on the
+// scratch `work` and, in the layout with J in global memory (JG), b's J in
 // `jslab` (the body of the CUDA kernels and of the host twin's loop over b).
 // Global arrays are batch-last; see fused_rollout.py.
-template <typename T, bool JG>
+template <typename T, bool JG, class G>
 HD void rollout(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
                 const T* f0, T* oq, T* ov, T* os, T* of0, T* jslab, T* work, int b) {
   const Ctx<T> c = rollout_ctx<T, JG>(s, mi, mf, work, jslab, b);
   const int64_t B = s.B;
-  rollout_init(c, qpos0, qvel0, f0, b);
+  rollout_init<G>(c, qpos0, qvel0, f0, b);
   for (int t = 0; t < s.T; ++t) {
     const Lane<const T> ctrl_t{ctrl + (int64_t)t * s.nu_ * B + b, B};
     const Lane<T> sens_t{os + (int64_t)t * s.ns_ * B + b, B};
-    Warp::for_each(s.ns_, [&](int k) { sens_t[k] = T(0); });
-    for (int sub = 0; sub < s.substeps; ++sub) step(c, ctrl_t, sens_t);
-    store_state(c, oq, ov, t, b);
+    G::for_each(s.ns_, [&](int k) { sens_t[k] = T(0); });
+    for (int sub = 0; sub < s.substeps; ++sub) step<G>(c, ctrl_t, sens_t);
+    store_state<G>(c, oq, ov, t, b);
     if (t == 0) {
-      Warp::for_each(s.nefc_, [&](int r) { of0[r * B + b] = r < s.nefc ? work[c.S.fw + r] : T(0); });
+      G::for_each(s.nefc_, [&](int r) { of0[r * B + b] = r < s.nefc ? work[c.S.fw + r] : T(0); });
     }
   }
 }
+
+#ifndef __CUDACC__
+// The host twin's loop over the rollouts, the group G played in one thread,
+// each rollout on the heap buffer `work` (fused_rollout_host.cpp, and
+// fused_rollout_multiwarp_host.cpp for W > 1).
+template <typename T, class G>
+int host_rollouts(const JtSizes& s, const int* mi, const T* mf, const T* qpos0, const T* qvel0, const T* ctrl,
+                  const T* f0, T* oq, T* ov, T* os, T* of0, T* jslab) {
+  std::vector<T> work(make_scratch(s).total);
+  return host_guard([&] {
+    for (int b = 0; b < s.B; ++b) {
+      if (s.jglobal)
+        rollout<T, true, G>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab, work.data(), b);
+      else
+        rollout<T, false, G>(s, mi, mf, qpos0, qvel0, ctrl, f0, oq, ov, os, of0, jslab, work.data(), b);
+    }
+  });
+}
+#endif
 
 }  // namespace jt

@@ -11,8 +11,11 @@ batch-first layout. ``physics_step`` wraps the single-step kernel (the port of
 ``pallas_step.py::_build_pallas_step``): one step with a cold probe, whose
 plain version is ``step_l(..., cw_v=None)``.
 
-The kernels run one warp per rollout with the rollout's scratch
-(``jt_scratch_per_lane`` elements) in dynamic shared memory. Before a launch
+The kernels run one block per rollout with the rollout's scratch
+(``jt_scratch_per_lane`` elements) in dynamic shared memory. A block is one
+warp, or for the rollout kernel W warps where the rollouts are too few to
+give each SM's four schedulers a warp (``rollout_warps``: W from the batch,
+the model's constraint rows and the card's SM count, never a setting). Before a launch
 the wrapper picks the scratch layout from the sizes: all of it in shared
 memory where that fits the card's per-block opt-in limit, else the layout
 that keeps each rollout's constraint Jacobian J in a slab of global memory
@@ -279,6 +282,48 @@ def _sizes(m: PhysicsModel, B: int, T: int, substeps: int, iterations: int | Non
     )
 
 
+# The warps per rollout the rollout kernel is built for (csrc/fused_rollout.cu),
+# the schedulers of an SM, each of which runs warps of its own, and the lanes
+# of a warp.
+ROLLOUT_WARPS, SCHEDULERS_PER_SM, WARP_LANES = (1, 4), 4, 32
+
+
+def rollout_warps(rollouts: int, sms: int, rows: int) -> int:
+    """Warps per rollout of the rollout kernel for a solve of ``rollouts``
+    rollouts of a model with ``rows`` constraint rows on a card of ``sms``
+    SMs. One warp where its 32 lanes take the rows in one pass (cylinder_push's
+    24, cartpole's 2): the row passes are what more warps speed up, and
+    elsewhere they add only barriers. Else the most of ``ROLLOUT_WARPS`` with
+    which the ceil(rollouts / sms) blocks of an SM give its four schedulers at
+    most one warp each (fr3_pick's 64 rollouts on 132 SMs: 4; leap's 320,
+    three blocks an SM: 1)."""
+    if rows <= WARP_LANES:
+        return 1
+    per_sm = -(-rollouts // sms)
+    return max(w for w in ROLLOUT_WARPS if per_sm * w <= SCHEDULERS_PER_SM or w == 1)
+
+
+_SMS: dict[str, int] = {}
+
+
+def sm_count(dev) -> int | None:
+    """The SMs of CUDA device ``dev``, read once per device; None for a
+    device that is not a CUDA one."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return None
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[key]
+
+
+def fold_smem(warps: int, itemsize: int) -> int:
+    """Static shared memory of the rollout kernel's folds at ``warps`` warps
+    per rollout (csrc/jt_common.cuh:fold_partials), in bytes."""
+    return warps * itemsize if warps > 1 else 0
+
+
 def _check_layout(lib, m: PhysicsModel, sizes: JtSizes) -> None:
     """Assert the packed model matches the library's layout."""
     nint, nflt = ctypes.c_int(), ctypes.c_int()
@@ -351,7 +396,7 @@ def choose_layout(lib, sizes: JtSizes, itemsize: int, name: str, maxw: int | Non
     raise RuntimeError(
         f"{name}: one rollout's scratch needs {need[SHARED]} bytes of shared memory per block, and "
         f"{need[GLOBAL_J]} with its constraint Jacobian in global memory, more than this card's opt-in limit of "
-        f"{limit} bytes; the model is too large for the one-warp kernel"
+        f"{limit} bytes; the model is too large for the kernel"
     )
 
 
@@ -361,22 +406,25 @@ def jslab(lib, sizes: JtSizes, B: int, dtype, dev) -> torch.Tensor:
     return torch.empty((B, n), dtype=dtype, device=dev)
 
 
-def kernel_layout(m: PhysicsModel, dtype: torch.dtype, cold: bool = False, policy=None) -> tuple[str, int, int]:
-    """(layout, shared-memory bytes per block, resident blocks per SM) of the
-    rollout kernel (``cold``: the single-step kernel; ``policy``: the policy
-    rollout kernel with that policy) for ``m`` on the current card."""
+def kernel_layout(m: PhysicsModel, dtype: torch.dtype, cold: bool = False, policy=None,
+                  warps: int = 1) -> tuple[str, int, int]:
+    """(layout, dynamic shared-memory bytes per block, resident blocks per
+    SM) of the rollout kernel in blocks of ``warps`` warps (``cold``: the
+    single-step kernel; ``policy``: the policy rollout kernel with that
+    policy; both one warp) for ``m`` on the current card."""
     from judo_tpu_torch import _build
 
     lib = _build.load("cuda")
-    sizes = _sizes(m, 1, 1, 1, None)
+    sizes = _sizes(m, 1, 1, 1, None, cold)
     _check_layout(lib, m, sizes)
     maxw = None if policy is None else max(policy.dims)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    layout, nbytes = choose_layout(lib, sizes, itemsize, "kernel_layout", maxw, smem_limit(lib))
+    limit = smem_limit(lib) - fold_smem(warps, itemsize)
+    layout, nbytes = choose_layout(lib, sizes, itemsize, "kernel_layout", maxw, limit)
     blocks = ctypes.c_int()
     f64 = int(dtype == torch.float64)
     if policy is None:
-        err = lib.jt_rollout_blocks_per_sm(int(cold), sizes.jglobal, f64, nbytes, ctypes.byref(blocks))
+        err = lib.jt_rollout_blocks_per_sm(int(cold), sizes.jglobal, f64, warps, nbytes, ctypes.byref(blocks))
     else:
         err = lib.jt_policy_blocks_per_sm(sizes.jglobal, f64, nbytes, ctypes.byref(blocks))
     if err != 0:
@@ -384,16 +432,17 @@ def kernel_layout(m: PhysicsModel, dtype: torch.dtype, cold: bool = False, polic
     return layout, nbytes, blocks.value
 
 
-def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False, layout=None):
-    """Run the library's fused rollout (or, with ``cold``, the single-step
-    kernel) on contiguous tensors; returns the outputs. ``layout`` forces a
-    scratch layout (tests run the host twin in both); by default the card's
-    limit picks it, and the host twin keeps the whole scratch in one buffer."""
+def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=False, layout=None, warps=1):
+    """Run the library's fused rollout in blocks of ``warps`` warps (or, with
+    ``cold``, the single-step kernel, one warp) on contiguous tensors; returns
+    the outputs. ``layout`` forces a scratch layout (tests run the host twin
+    in both); by default the card's limit picks it, and the host twin keeps
+    the whole scratch in one buffer."""
     B, T = qpos.shape[-1], ctrl.shape[0]
     sizes = _sizes(m, B, T, substeps, iterations, cold)
     _check_layout(lib, m, sizes)
     dev, dtype = qpos.device, qpos.dtype
-    limit = smem_limit(lib) if qpos.is_cuda and layout is None else None
+    limit = smem_limit(lib) - fold_smem(warps, qpos.element_size()) if qpos.is_cuda and layout is None else None
     if layout is not None:
         scratch_elems(lib, sizes, layout)
     else:
@@ -407,7 +456,7 @@ def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=Fal
     of0 = torch.empty((c["nefc_"], B), dtype=dtype, device=dev)
     fn = lib.jt_fused_rollout_f64 if dtype == torch.float64 else lib.jt_fused_rollout_f32
     args = [mi, mf, *ins, oq, ov, os_, of0, jslab(lib, sizes, B, dtype, dev)]
-    err = fn(ctypes.byref(sizes), *[a.data_ptr() for a in args], stream)
+    err = fn(ctypes.byref(sizes), warps, *[a.data_ptr() for a in args], stream)
     if err != 0:
         raise RuntimeError(f"fused_rollout kernel launch failed: {lib.jt_error_string(err).decode()} ({err})")
     return oq, ov, os_, of0
@@ -416,22 +465,33 @@ def _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, cold=Fal
 _tally = threading.local()
 
 
-def count_launch(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel: one more in ``wrapper.launches``,
-    or, while this thread tallies (a solve graph's warm-up and capture), in
-    the tally instead."""
+def add_launches(wrapper, n: int, warps: int = 1) -> None:
+    """``n`` launches of ``wrapper``'s kernel in blocks of ``warps`` warps:
+    added to ``wrapper.launches`` and, where the wrapper keeps them by W
+    (``fused_rollout.launches_by_warps``), to its count at ``warps``."""
+    wrapper.launches += n
+    by_warps = getattr(wrapper, "launches_by_warps", None)
+    if by_warps is not None:
+        by_warps[warps] = by_warps.get(warps, 0) + n
+
+
+def count_launch(wrapper, warps: int = 1) -> None:
+    """One launch of ``wrapper``'s kernel in blocks of ``warps`` warps
+    (``add_launches``), or, while this thread tallies (a solve graph's
+    warm-up and capture), one more in the tally instead."""
     tally = getattr(_tally, "counts", None)
     if tally is None:
-        wrapper.launches += 1
+        add_launches(wrapper, 1, warps)
     else:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[wrapper, warps] = tally.get((wrapper, warps), 0) + 1
 
 
 @contextlib.contextmanager
 def tallied_launches():
-    """Count this thread's kernel launches into the dict it yields (wrapper ->
-    launches), not into the wrappers' counters. A solve graph tallies its
-    warm-up and its capture: its replays add the captured kernels' launches."""
+    """Count this thread's kernel launches into the dict it yields ((wrapper,
+    warps) -> launches), not into the wrappers' counters. A solve graph
+    tallies its warm-up and its capture: its replays add the captured
+    kernels' launches (``add_launches``)."""
     _tally.counts = {}
     try:
         yield _tally.counts
@@ -447,25 +507,34 @@ def fused_rollout(
     f0: torch.Tensor,  # (nefc_, B)
     substeps: int = 1,
     iterations: int | None = None,
+    warps: int | None = None,
 ):
     """The fused rollout, batch-last: -> ((T,nq,B), (T,nv,B), (T,ns_,B), (nefc_,B)).
 
-    CUDA tensors launch the kernel (``fused_rollout.launches`` counts each
-    launch; ``count_launch``: a solve graph's replay adds the launches it
-    captured); CPU tensors run the plain version. Nothing else is accepted.
+    CUDA tensors launch the kernel in blocks of ``warps`` warps per rollout
+    (a solve passes the W of its whole batch, so that its shards run as one
+    launch would; None: ``rollout_warps`` of B, the model's rows and the
+    device's SMs).
+    ``fused_rollout.launches`` counts each launch and
+    ``fused_rollout.launches_by_warps`` each at its W (``count_launch``: a
+    solve graph's replay adds the launches it captured). CPU tensors run the
+    plain version, whose arithmetic has no W. Nothing else is accepted.
     """
     _check_inputs(m, qpos, qvel, ctrl, f0)
     if qpos.device.type == "cpu":
         return rollout_lanes_reference(m, qpos, qvel, ctrl, f0, substeps, iterations)
     lib = _cuda_lib(qpos, "fused_rollout")
+    if warps is None:
+        warps = rollout_warps(qpos.shape[-1], sm_count(qpos.device), num_constraint_rows(m))
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
-        out = _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream)
-    count_launch(fused_rollout)
+        out = _launch(lib, m, qpos, qvel, ctrl, f0, substeps, iterations, stream, warps=warps)
+    count_launch(fused_rollout, warps)
     return out
 
 
 fused_rollout.launches = 0
+fused_rollout.launches_by_warps = {}
 
 
 def _cuda_lib(x: torch.Tensor, name: str):
@@ -525,16 +594,19 @@ def physics_step_host_twin(m: PhysicsModel, qpos, qvel, ctrl, f, iterations: int
 
 def fused_rollout_host_twin(
     m: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor, f0: torch.Tensor,
-    substeps: int = 1, iterations: int | None = None, layout: str = SHARED,
+    substeps: int = 1, iterations: int | None = None, layout: str = SHARED, warps: int = 1,
 ):
     """The kernel's own code built with g++ and run on the CPU, one rollout
-    after another, with the warp's 32 lanes played in one thread in the
-    card's order (csrc/fused_rollout_host.cpp), in scratch layout ``layout``.
-    For tests."""
+    after another, with the block's ``warps`` x 32 threads played in one
+    thread in the card's order (csrc/fused_rollout_host.cpp), in scratch
+    layout ``layout``. For tests."""
     _check_inputs(m, qpos, qvel, ctrl, f0)
+    if warps not in ROLLOUT_WARPS:
+        raise ValueError(f"warps {warps} is none of the built {ROLLOUT_WARPS}")
     from judo_tpu_torch import _build
 
-    return _launch(_build.load("host"), m, qpos, qvel, ctrl, f0, substeps, iterations, None, layout=layout)
+    return _launch(_build.load("host"), m, qpos, qvel, ctrl, f0, substeps, iterations, None, layout=layout,
+                   warps=warps)
 
 
 def rollout_lanes(
@@ -545,10 +617,12 @@ def rollout_lanes(
     physics_substeps: int = 1,
     iterations: int | None = None,
     efc_warm: torch.Tensor | None = None,  # (R, nefc) onset warm start
+    warps: int | None = None,
 ) -> LaneRolloutOutput:
     """Batched rollout with batch-first states at the boundary (the semantics
     of pallas_step.rollout_lanes: post-step (qpos, qvel) and the last
-    substep's pre-integration sensors per control, plus the step-0 forces)."""
+    substep's pre-integration sensors per control, plus the step-0 forces);
+    ``warps`` as ``fused_rollout``'s."""
     R, T = controls.shape[0], controls.shape[1]
     nefc = num_constraint_rows(m)
     ns = m.nsensordata
@@ -560,7 +634,8 @@ def rollout_lanes(
         f0 = torch.zeros((max(nefc, 1), R), dtype=dtype, device=dev)
     else:
         f0 = efc_warm.T.to(dtype)
-    qps, qvs, senss, f0_out = fused_rollout(m, qp, qv, ct.contiguous(), f0.contiguous(), physics_substeps, iterations)
+    qps, qvs, senss, f0_out = fused_rollout(m, qp, qv, ct.contiguous(), f0.contiguous(), physics_substeps, iterations,
+                                            warps)
     states = torch.cat([qps, qvs], dim=1).permute(2, 0, 1)
     senss = senss.permute(2, 0, 1)[:, :, :ns]
     return LaneRolloutOutput(states=states, sensordata=senss, efc0=f0_out.T[:, : max(nefc, 1)])

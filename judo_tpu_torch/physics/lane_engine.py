@@ -26,7 +26,7 @@ def bsum(x: torch.Tensor, dim: int) -> torch.Tensor:
     order that changes with the width (and at a width of 1 reduces along the
     contiguous dimension instead), so a rollout would round differently in a
     shard of the batch than in the whole; here every column is one
-    contiguous inner sum, as the kernel's one warp per rollout is."""
+    contiguous inner sum, as the kernel's one block per rollout is."""
     return torch.sum(x.movedim(dim, -1).contiguous(), dim=-1)
 
 
